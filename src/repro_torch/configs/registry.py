@@ -1,0 +1,30 @@
+"""Architecture registry: ``--arch <id>`` resolves here.
+
+This slice of the port registers the architectures whose layers it runs:
+``smollm-135m``.  ``smoke_config`` is the JAX registry's reduction (same
+family and pattern, tiny dims, runnable on CPU).
+"""
+from __future__ import annotations
+
+from repro_torch.models.api import ArchConfig
+
+from . import smollm_135m
+
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in (smollm_135m.CONFIG,)}
+
+
+def get(name: str) -> ArchConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch '{name}' for the torch port; known: "
+                       f"{sorted(ARCHS)} (the other architectures come with "
+                       "later slices of the port)")
+    return ARCHS[name]
+
+
+def smoke_config(name: str) -> ArchConfig:
+    cfg = get(name)
+    return cfg.scaled(
+        n_layers=2 * cfg.period, d_model=64, n_heads=4,
+        n_kv_heads=max(1, 4 * cfg.n_kv_heads // cfg.n_heads), head_dim=16,
+        d_ff=0 if cfg.d_ff == 0 else 96, vocab=211,
+        window=8 if cfg.window else None, aux_dim=32, ce_chunk=64)

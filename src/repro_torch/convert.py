@@ -1,0 +1,31 @@
+"""Weights and state across the two packages.
+
+``state_from_numpy`` takes the JAX train state as numpy
+(``jax.tree.map(np.asarray, state)``) and gives the port's state, leaf for
+leaf, with every stacked axis kept; ``state_to_numpy`` goes back.  Integer
+leaves are int64 in the port (torch's index type) and int32 in the JAX
+package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import tree_map
+
+
+def state_from_numpy(tree, device):
+    def leaf(x):
+        x = np.asarray(x)
+        t = torch.from_numpy(np.array(x, copy=True))
+        if np.issubdtype(x.dtype, np.integer):
+            t = t.to(torch.int64)
+        return t.to(device)
+    return tree_map(leaf, tree)
+
+
+def state_to_numpy(state):
+    def leaf(t):
+        x = t.detach().cpu().numpy()
+        return x.astype(np.int32) if np.issubdtype(x.dtype, np.integer) else x
+    return tree_map(leaf, state)

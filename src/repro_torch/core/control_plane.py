@@ -1,0 +1,268 @@
+"""Host control plane: Alg. 2–4 driving the hybrid step.
+
+The bridge between the paper's host-side algorithms — the Task Scheduler
+(Alg. 2/3), memory-bounded flow control (§3.4.1) and staleness-weighted
+aggregation (Alg. 4) — and ``fedopt_step.make_train_step``.  Everything
+data-dependent is planned here on the host and shipped into the step as
+small dense fields.  Per round, :meth:`ControlPlane.plan_round` emits a
+:class:`RoundPlan`:
+
+    read_slot[h]    ring slot the server trains on at micro-iteration h
+                    (Alg. 3: the least-served group's contribution)
+    write_slot[h]   slot the devices' emission lands in
+    send_mask[h,g]  1 if group g holds a token and ships its rows
+    agg_weight[g]   α_g = (staleness_g + 1)^-alpha_power, 0 beyond the
+                    staleness cap D or for inactive groups
+    bcast_mask[g]   1 if group g receives the aggregated model back
+
+plus the ``retire``/``restore`` group lists for dropped and rejoining
+groups, whose dev/aux params the driver moves through the
+:class:`RetentionStore`.
+
+A copy of the JAX package's pod path with the spill tier off
+(``pool_cap=0``): the tiered store, checkpointing of the plan and the
+event-simulator hooks come with later slices of the port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.memory.policy import make_eviction_policy
+
+from .aggregator import staleness_weight
+from .flow_control import FlowController
+from .scheduler import Message, TaskScheduler
+
+
+@dataclass(frozen=True)
+class RoundPlan:
+    """One round's host-planned schedule, consumed by the step."""
+    read_slot: np.ndarray    # (H,) int32
+    write_slot: np.ndarray   # (H,) int32
+    send_mask: np.ndarray    # (H, G) float32
+    agg_weight: np.ndarray   # (G,) float32
+    bcast_mask: np.ndarray = None   # (G,) float32; None -> all receive
+    retire: tuple = ()       # groups that just dropped: gather to retention
+    restore: tuple = ()      # rejoining groups: scatter retained state back
+
+    def batch_fields(self, device) -> dict:
+        """The plan as step batch fields, as tensors on ``device``."""
+        bcast = self.bcast_mask if self.bcast_mask is not None else \
+            np.ones(self.send_mask.shape[1], np.float32)
+        as_t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
+                                             device=device)
+        return {"read_slot": as_t(self.read_slot, torch.int64),
+                "write_slot": as_t(self.write_slot, torch.int64),
+                "send_mask": as_t(self.send_mask, torch.float32),
+                "agg_weight": as_t(self.agg_weight, torch.float32),
+                "bcast_mask": as_t(bcast, torch.float32)}
+
+
+class RetentionStore:
+    """Host-side per-group dev/aux retention for dropped groups (§3.4.2):
+    a group rejoins from its OWN last-synced params at its recorded
+    staleness instead of being resynced by the aggregation broadcast."""
+
+    def __init__(self):
+        self._held: dict[int, dict] = {}
+
+    def retain(self, g: int, params, version: int):
+        self._held[int(g)] = {"params": params, "version": int(version)}
+
+    def release(self, g: int) -> dict:
+        return self._held.pop(int(g))
+
+    def __contains__(self, g) -> bool:
+        return int(g) in self._held
+
+
+class ControlPlane:
+    """TaskScheduler + FlowController + staleness accounting, round-planned.
+    One flow unit is one group's rows in a slot (token budget ω·G)."""
+
+    def __init__(self, n_groups: int, omega: int, H: int = 1, *,
+                 policy: str = "counter", max_delay: int = 16,
+                 alpha_power: float = 1.0, pool_cap: int = 0,
+                 eviction: str = "share"):
+        if omega < 1 or n_groups < 1:
+            raise ValueError(
+                f"need omega >= 1 and n_groups >= 1, got omega={omega}, "
+                f"n_groups={n_groups} (ω is the Eq. 3 activation cap)")
+        if pool_cap != 0:
+            raise NotImplementedError(
+                f"pool_cap={pool_cap}: the tiered activation store comes "
+                "with a later slice of the torch port (queue A, the memory "
+                "store); this control plane runs the hard-ω ring")
+        self.G = n_groups
+        self.omega = omega
+        self.H = H
+        self.max_delay = max_delay
+        self.alpha_power = alpha_power
+        self.pool_cap = pool_cap
+        self.mem_policy = make_eviction_policy(eviction)
+        self.scheduler = TaskScheduler(n_groups, policy=policy)
+        self.flow = FlowController(omega=omega * n_groups)
+        for g in range(n_groups):
+            self.flow.register(g)
+        self.versions = np.zeros(n_groups, np.int64)   # t_g
+        self.version = 0                               # t (global model)
+        self.retention = RetentionStore()
+        self.prev_active = np.ones(n_groups, bool)     # last round's roster
+        self.n_accepted = 0
+        self.n_rejected = 0
+        self.peak_buffered = 0
+        self.peak_live_slots = 0
+        self._slot_groups = [set() for _ in range(omega)]
+        self._next_write = 0
+        self._last_read = 0
+
+    # ------------------------------------------------------------------
+    # plan one round of H micro-iterations
+    # ------------------------------------------------------------------
+
+    def plan_round(self, active=None, produce=None, reads=None) -> RoundPlan:
+        """Plan H micro-iterations and commit the bookkeeping.
+
+        active : (G,) bool — groups participating in this round.
+        produce : (H, G) bool — which groups emit at each micro-iteration;
+            default: every active group every h.
+        reads : (H,) bool — micro-iterations at which the server consumes a
+            new scheduled batch; default all.  A False entry replays an
+            already-consumed slot.
+        """
+        G, H = self.G, self.H
+        active = np.ones(G, bool) if active is None else \
+            np.asarray(active, bool)
+        produce = np.tile(active, (H, 1)) if produce is None else \
+            np.asarray(produce, bool) & active[None, :]
+        reads = np.ones(H, bool) if reads is None else np.asarray(reads, bool)
+
+        retire = tuple(int(g)
+                       for g in np.flatnonzero(self.prev_active & ~active))
+        restore = tuple(int(g)
+                        for g in np.flatnonzero(~self.prev_active & active)
+                        if int(g) in self.retention)
+        self.prev_active = active.copy()
+
+        read_slot = np.zeros(H, np.int32)
+        write_slot = np.zeros(H, np.int32)
+        send_mask = np.zeros((H, G), np.float32)
+        for h in range(H):
+            # the server reads the ring from before this iteration's write
+            read_slot[h] = self._plan_read(consume=bool(reads[h]))
+            write_slot[h] = self._plan_write(produce[h], send_mask[h])
+
+        return RoundPlan(read_slot=read_slot, write_slot=write_slot,
+                         send_mask=send_mask,
+                         agg_weight=self.agg_weights(active),
+                         bcast_mask=active.astype(np.float32),
+                         retire=retire, restore=restore)
+
+    def retain_group(self, g: int, params):
+        """Hold a dropped group's dev/aux params at its last-synced version."""
+        self.retention.retain(g, params, version=int(self.versions[g]))
+
+    def release_group(self, g: int) -> dict:
+        """Pop a rejoining group's retained entry ({"params", "version"})."""
+        return self.retention.release(g)
+
+    def _plan_read(self, consume: bool) -> int:
+        """Pick the slot the server trains on (Alg. 3 at slot granularity)."""
+        if not consume or not self.scheduler.has_activation:
+            # cold start or a stalled tick: replay a slot with no live
+            # contributions, else the last consumed one
+            for d in range(self.omega):
+                s = (self._last_read + d) % self.omega
+                if not self._slot_groups[s]:
+                    return s
+            return self._last_read
+        msg = self.scheduler.get()
+        s = msg.content
+        contributors = sorted(self._slot_groups[s])
+        self.scheduler.drain_slot(s, [g for g in contributors
+                                      if g != msg.origin])
+        for g in contributors:
+            self.flow.on_dequeue(g)
+        self._slot_groups[s].clear()
+        self._last_read = s
+        return s
+
+    def _plan_write(self, offer: np.ndarray, mask_row: np.ndarray) -> int:
+        """Allocate a free ring slot and grant sends into it; with no free
+        slot nobody sends (a masked no-op write: the hard ω cap)."""
+        order = [int(g) for g in
+                 sorted(np.flatnonzero(offer),
+                        key=lambda g: (self.scheduler.counters.get(g, 0), g))
+                 if self.flow.can_send(g)]
+        w = self._free_slot()
+        if w is None:
+            return int(self._next_write)
+        for g in order:
+            self.flow.mark_sent(g)
+            self.flow.on_enqueue(g)          # lockstep: arrival is immediate
+            self.scheduler.put(Message("activation", g, content=w))
+            self._slot_groups[w].add(g)
+            mask_row[g] = 1.0
+        if self._slot_groups[w]:
+            self._next_write = (w + 1) % self.omega
+        self.peak_buffered = max(self.peak_buffered, self.flow.buffered)
+        self.peak_live_slots = max(self.peak_live_slots, self.live_slots)
+        return w
+
+    def _free_slot(self) -> int | None:
+        for d in range(self.omega):
+            s = (self._next_write + d) % self.omega
+            if not self._slot_groups[s]:
+                return s
+        return None
+
+    # ------------------------------------------------------------------
+    # staleness-weighted aggregation bookkeeping (Alg. 4)
+    # ------------------------------------------------------------------
+
+    def agg_weights(self, active=None) -> np.ndarray:
+        """Per-group α from real staleness counters (Alg. 4 lines 13/16);
+        may be all-zero, which the step treats as "keep current params"."""
+        active = np.ones(self.G, bool) if active is None else \
+            np.asarray(active, bool)
+        return np.array([staleness_weight(self.version - int(self.versions[g]),
+                                          self.max_delay, self.alpha_power)
+                         if active[g] else 0.0 for g in range(self.G)],
+                        np.float32)
+
+    def finish_round(self, active=None):
+        """End-of-round accounting: one round is one aggregation event;
+        every participant syncs to the new global model (Alg. 4 l. 12-20)."""
+        active = np.ones(self.G, bool) if active is None else \
+            np.asarray(active, bool)
+        t = self.version
+        accepted = [g for g in np.flatnonzero(active)
+                    if staleness_weight(t - int(self.versions[g]),
+                                        self.max_delay,
+                                        self.alpha_power) > 0.0]
+        self.n_accepted += len(accepted)
+        self.n_rejected += int(active.sum()) - len(accepted)
+        if not accepted:
+            return
+        self.version = t + 1
+        for g in np.flatnonzero(active):
+            self.versions[g] = self.version
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+
+    @property
+    def live_slots(self) -> int:
+        return sum(1 for s in self._slot_groups if s)
+
+    @property
+    def consumption(self) -> dict[int, int]:
+        return dict(self.scheduler.counters)
+
+    @property
+    def within_cap(self) -> bool:
+        return self.flow.within_cap and self.live_slots <= self.omega

@@ -1,0 +1,108 @@
+"""Memory-bounded activation flow control (paper §3.4.1).
+
+A global buffering cap ω bounds Σ_k |Q_k^act| ≤ ω.  Each device holds a
+Sender Status token: after one send it deactivates until the server grants
+a 'turn-on', and grants are issued only while everything buffered or
+promised stays within ω — a strict invariant::
+
+    buffered + inflight + active_tokens <= omega        (always)
+
+Grants go round-robin.  A copy of the JAX package's controller without its
+sanitizer hooks, its spill-tier budget (``pool_cap``) and its quarantine
+path, which come with the tiered-store and fault slices.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+
+
+@dataclass
+class FlowController:
+    omega: int                              # activation cap ω
+    sender_active: dict = field(default_factory=dict)   # device -> bool
+    buffered: int = 0                       # Σ_k |Q_k^act| (server view)
+    inflight_by: dict = field(default_factory=dict)     # device -> sends
+    grants: deque = field(default_factory=lambda: deque(maxlen=256))
+    _rr: list = field(default_factory=list)              # round-robin order
+
+    def register(self, k: int):
+        """New device: its sender starts inactive; a token is granted if
+        the cap allows."""
+        if k in self.sender_active:
+            return
+        self.sender_active[k] = False
+        self._rr.append(k)
+        self._maybe_grant()
+
+    # -- device side --
+    def can_send(self, k: int) -> bool:
+        return self.sender_active.get(k, False)
+
+    def mark_sent(self, k: int):
+        """Device consumed its token -> becomes an in-flight send."""
+        if not self.sender_active.get(k, False):
+            raise RuntimeError(
+                f"device {k} sent without a token (buffered={self.buffered}, "
+                f"inflight={self.inflight}, tokens={self.active_tokens}, "
+                f"cap={self.omega})")
+        self.sender_active[k] = False
+        self.inflight_by[k] = self.inflight_by.get(k, 0) + 1
+
+    # -- server side --
+    def on_enqueue(self, k: int) -> bool:
+        """Admit an arriving activation batch; False for an unaccounted
+        arrival (its sender's budget was reclaimed), which must be dropped."""
+        n = self.inflight_by.get(k, 0)
+        if n == 0:
+            return False
+        if n == 1:
+            self.inflight_by.pop(k)
+        else:
+            self.inflight_by[k] = n - 1
+        self.buffered += 1
+        self._maybe_grant()
+        return True
+
+    def on_dequeue(self, k: int):
+        self.buffered = max(0, self.buffered - 1)
+        self._maybe_grant()
+
+    def on_device_left(self, k: int):
+        """Reclaim a dropped device's token and in-flight sends."""
+        self.sender_active.pop(k, None)
+        self.inflight_by.pop(k, None)
+        if k in self._rr:
+            self._rr.remove(k)
+        self._maybe_grant()
+
+    # -- invariant-preserving grant --
+    @property
+    def inflight(self) -> int:
+        return sum(self.inflight_by.values())
+
+    @property
+    def active_tokens(self) -> int:
+        return sum(1 for v in self.sender_active.values() if v)
+
+    @property
+    def promised(self) -> int:
+        return self.buffered + self.inflight + self.active_tokens
+
+    def _maybe_grant(self):
+        if not self._rr:
+            return
+        n = len(self._rr)
+        scanned = 0
+        while self.promised < self.omega and scanned < n:
+            k = self._rr.pop(0)      # a scanned device moves to the back
+            self._rr.append(k)
+            scanned += 1
+            if not self.sender_active.get(k, False):
+                self.sender_active[k] = True
+                self.grants.append(k)
+                scanned = 0          # re-scan: more room may remain
+
+    @property
+    def within_cap(self) -> bool:
+        return self.buffered <= self.omega and self.promised <= self.omega

@@ -1,0 +1,68 @@
+"""Architecture description consumed by the port's model code.
+
+One :class:`ArchConfig` describes a decoder LM whose layer stack repeats a
+*period*: ``pattern`` lists (mixer, ffn) pairs and the stack is
+``pattern * n_periods``.  Per-position params are stacked over periods,
+leaves shaped ``(n_periods, ...)``, as in the JAX package.  This slice of
+the port runs the ``("attn", "dense")`` pattern only.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+from .attention import AttentionConfig
+from .mlp import MlpConfig
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    pattern: tuple = (("attn", "dense"),)
+    head_dim: int | None = None
+    attn_softcap: float | None = None
+    window: int | None = None          # sliding-window size for "local" mixers
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    activation: str = "swiglu"
+    aux_dim: int = 512                 # FedOptima aux head bottleneck dim
+    ce_chunk: int = 512                # sequence positions per CE chunk
+    attn_chunk: int = 1024             # query-chunk size of sdpa_chunked
+
+    @property
+    def period(self) -> int:
+        return len(self.pattern)
+
+    @property
+    def n_periods(self) -> int:
+        if self.n_layers % self.period:
+            raise ValueError(f"{self.name}: {self.n_layers} layers is not a "
+                             f"multiple of the period {self.period}")
+        return self.n_layers // self.period
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else \
+            self.d_model // self.n_heads
+
+    def attn_cfg(self, mixer: str) -> AttentionConfig:
+        return AttentionConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            attn_softcap=self.attn_softcap,
+            window=self.window if mixer == "local" else None,
+            rope_theta=self.rope_theta, chunk_q=self.attn_chunk)
+
+    def mlp_cfg(self) -> MlpConfig:
+        return MlpConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         activation=self.activation)
+
+    def scaled(self, **kw) -> "ArchConfig":
+        """Reduced copy for smoke tests."""
+        return replace(self, **kw)

@@ -1,0 +1,129 @@
+"""Self-attention with GQA, sliding window and logit soft-capping.
+
+``attention_apply`` dispatches to the flash-attention kernels
+(``repro_torch.kernels.ops.flash_attention``) when ``use_kernel`` is set,
+otherwise to the plain ``sdpa_chunked``.  Both share the parameter layout
+and both are differentiable.  The projections stay ``torch.matmul``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from .common import apply_rope, dense_init, softcap
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int | None = None          # default d_model // n_heads
+    attn_softcap: float | None = None    # Gemma-2 (e.g. 50.0)
+    window: int | None = None            # sliding-window size; None = global
+    rope_theta: float = 10000.0
+    causal: bool = True
+    chunk_q: int = 1024                  # query-chunk size of sdpa_chunked
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else \
+            self.d_model // self.n_heads
+
+
+def attention_init(gen: torch.Generator, cfg: AttentionConfig, *,
+                   dtype=torch.float32) -> dict:
+    hd = cfg.hd
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype=dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype=dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype=dtype),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype=dtype,
+                         scale=1.0 / (cfg.n_heads * hd) ** 0.5),
+    }
+
+
+def _project_qkv(params: dict, cfg: AttentionConfig, x):
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, Hkv, hd)."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
+    k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return q, k, v
+
+
+def _mask(qpos, kpos, *, causal: bool, window: int | None):
+    mask = torch.ones(qpos.shape[0], kpos.shape[0], dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    return mask
+
+
+def sdpa_reference(q, k, v, *, causal: bool, window: int | None,
+                   logit_cap: float | None):
+    """Plain attention with GQA, materialising the (S, Skv) scores.
+    q: (B, S, H, hd); k, v: (B, Skv, Hkv, hd)."""
+    B, S, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, hd).float()
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / math.sqrt(hd)
+    if logit_cap is not None:
+        logits = softcap(logits, logit_cap)
+    mask = _mask(torch.arange(S, device=q.device),
+                 torch.arange(Skv, device=q.device), causal=causal,
+                 window=window)
+    probs = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def sdpa_chunked(q, k, v, *, causal: bool, window: int | None,
+                 logit_cap: float | None, chunk_q: int = 1024):
+    """Query-chunked attention, numerically the same as sdpa_reference; at
+    most one chunk's (B, H, cq, Skv) logits exist at a time.  K/V are
+    expanded to H heads, as in the JAX version."""
+    B, S, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    kf = k.repeat_interleave(group, dim=2).float()     # (B, Skv, H, hd)
+    vf = v.repeat_interleave(group, dim=2).float()
+    scale = 1.0 / math.sqrt(hd)
+    kv_pos = torch.arange(Skv, device=q.device)
+
+    def chunk_attn(qc, qpos):
+        logits = torch.einsum("bqhd,bthd->bhqt", qc.float(), kf) * scale
+        if logit_cap is not None:
+            logits = softcap(logits, logit_cap)
+        mask = _mask(qpos, kv_pos, causal=causal, window=window)
+        probs = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1)
+        return torch.einsum("bhqt,bthd->bqhd", probs, vf).to(q.dtype)
+
+    cq = min(chunk_q, S)
+    pos = torch.arange(S, device=q.device)
+    return torch.cat([chunk_attn(q[:, i:i + cq], pos[i:i + cq])
+                      for i in range(0, S, cq)], dim=1)
+
+
+def attention_apply(params: dict, cfg: AttentionConfig, x, *,
+                    positions=None, use_kernel: bool = False):
+    """Full-sequence causal self-attention (training). x: (B, S, D)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        out = kops.flash_attention(q, k, v, causal=cfg.causal,
+                                   window=cfg.window,
+                                   logit_cap=cfg.attn_softcap)
+    else:
+        out = sdpa_chunked(q, k, v, causal=cfg.causal, window=cfg.window,
+                           logit_cap=cfg.attn_softcap, chunk_q=cfg.chunk_q)
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"]

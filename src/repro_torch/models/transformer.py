@@ -1,0 +1,253 @@
+"""Backbone assembly and the FedOptima split API, for the ("attn", "dense")
+decoder pattern.
+
+The DNN is split at a period boundary ``l_split``.  The device half is
+``embed + blocks[:l_split]`` plus an auxiliary network (one block of the
+last pattern position's type and a factorized classifier head); the server
+half is ``blocks[l_split:] + final_norm`` and the tied head, trained on
+detached activations.
+
+``remat`` (per period, ``torch.utils.checkpoint`` without reentrancy):
+``False`` keeps every activation; ``True`` recomputes each period in the
+backward; ``"selective"`` recomputes too but saves the flash-attention
+forward's (out, lse), so the backward never launches the forward kernel
+again.  ``remat`` changes memory, never values.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from .api import ArchConfig
+from .attention import attention_apply, attention_init
+from .common import (dense_init, embed_init, rmsnorm_apply, rmsnorm_init,
+                     tree_map)
+from .mlp import mlp_apply, mlp_init
+
+
+def _check_pattern(cfg: ArchConfig) -> None:
+    for mixer, ffn in cfg.pattern:
+        if mixer not in ("attn", "local") or ffn != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: block ({mixer!r}, {ffn!r}) — this slice of the "
+                "torch port runs attention + dense FFN blocks only")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
+                dtype) -> dict:
+    dev = gen.device
+    return {"ln1": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
+            "mixer": attention_init(gen, cfg.attn_cfg(mixer), dtype=dtype),
+            "ln2": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
+            "ffn": mlp_init(gen, cfg.mlp_cfg(), dtype=dtype)}
+
+
+def _stack_init(gen: torch.Generator, cfg: ArchConfig, n_periods: int,
+                dtype) -> list:
+    """Per-position-in-period param stacks, leaves shaped (n_periods, ...)."""
+    stacks = []
+    for mixer, ffn in cfg.pattern:
+        per = [_block_init(gen, cfg, mixer, ffn, dtype)
+               for _ in range(n_periods)]
+        stacks.append(tree_map(lambda *xs: torch.stack(xs), *per))
+    return stacks
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig,
+                dtype=torch.float32) -> dict:
+    _check_pattern(cfg)
+    params = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype=dtype),
+              "blocks": _stack_init(gen, cfg, cfg.n_periods, dtype),
+              "final_norm": rmsnorm_init(cfg.d_model, device=gen.device,
+                                         dtype=dtype)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab,
+                                       dtype=dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Blocks and the stack
+# ---------------------------------------------------------------------------
+
+def _apply_block(p: dict, cfg: ArchConfig, mixer: str, ffn: str, h, *,
+                 positions, use_kernel: bool = False):
+    h = h + attention_apply(p["mixer"], cfg.attn_cfg(mixer),
+                            rmsnorm_apply(p["ln1"], h), positions=positions,
+                            use_kernel=use_kernel)
+    return h + mlp_apply(p["ffn"], cfg.mlp_cfg(), rmsnorm_apply(p["ln2"], h))
+
+
+def _save_kernel_out(ctx, op, *args, **kwargs):
+    """Selective-remat policy: keep the flash-attention forward's outputs
+    (O(S·hd) each, never the S×S scores), recompute everything else."""
+    from repro_torch.kernels.ops import SAVED_OPS
+    return CheckpointPolicy.MUST_SAVE if op in SAVED_OPS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_selective_context = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_kernel_out)
+
+
+def _run_stack(blocks: list, cfg: ArchConfig, h, *, positions,
+               use_kernel: bool = False, remat=True):
+    _check_pattern(cfg)
+
+    def period_fn(h, stacks_slice):
+        for pos, (mixer, ffn) in enumerate(cfg.pattern):
+            h = _apply_block(stacks_slice[pos], cfg, mixer, ffn, h,
+                             positions=positions, use_kernel=use_kernel)
+        return h
+
+    n = blocks[0]["ln1"]["scale"].shape[0]
+    for i in range(n):
+        stacks_slice = [tree_map(lambda x: x[i], s) for s in blocks]
+        if remat == "selective":
+            h = checkpoint(period_fn, h, stacks_slice, use_reentrant=False,
+                           context_fn=_selective_context)
+        elif remat:
+            h = checkpoint(period_fn, h, stacks_slice, use_reentrant=False)
+        else:
+            h = period_fn(h, stacks_slice)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+def _chunked_ce(logits_fn, h, labels, mask, s_chunk: int):
+    """Sequence-chunked CE on (B, S, D) hidden states: each chunk's
+    (B, sc, V) logits are recomputed in the backward instead of kept."""
+    S = h.shape[1]
+    sc = min(s_chunk, S)
+
+    def chunk_loss(hc, lc, mc):
+        logits = logits_fn(hc).float()                       # (B, sc, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.sum((lse - gold) * mc), torch.sum(mc)
+
+    loss = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, sc):
+        l, c = checkpoint(chunk_loss, h[:, i:i + sc], labels[:, i:i + sc],
+                          mask[:, i:i + sc], use_reentrant=False)
+        loss, cnt = loss + l, cnt + c
+    return loss / torch.clamp(cnt, min=1.0)
+
+
+def chunked_ce_loss(params: dict, cfg: ArchConfig, h, labels, mask=None):
+    """Next-token CE without materialising the full (B, S, V) logits."""
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+    return _chunked_ce(lambda hc: hc @ w, h, labels, mask.float(),
+                       cfg.ce_chunk)
+
+
+# ---------------------------------------------------------------------------
+# FedOptima split API
+# ---------------------------------------------------------------------------
+
+def _slice_stacks(blocks: list, lo: int, hi: int) -> list:
+    return [tree_map(lambda x: x[lo:hi], s) for s in blocks]
+
+
+def make_aux_params(gen: torch.Generator, cfg: ArchConfig,
+                    dtype=torch.float32) -> dict:
+    """Auxiliary network: one block of the last pattern position's type and
+    a factorized dense classifier (d_model -> aux_dim -> vocab)."""
+    mixer, ffn = cfg.pattern[-1]
+    return {"block": _block_init(gen, cfg, mixer, ffn, dtype),
+            "norm": rmsnorm_init(cfg.d_model, device=gen.device, dtype=dtype),
+            "head_in": dense_init(gen, cfg.d_model, cfg.aux_dim, dtype=dtype),
+            "head_out": dense_init(gen, cfg.aux_dim, cfg.vocab, dtype=dtype)}
+
+
+def split_params(params: dict, cfg: ArchConfig, l_split: int):
+    """Split at period boundary l_split in [1, n_periods - 1]."""
+    dev = {"blocks": _slice_stacks(params["blocks"], 0, l_split),
+           "embed": params["embed"]}
+    srv = {"blocks": _slice_stacks(params["blocks"], l_split, cfg.n_periods),
+           "final_norm": params["final_norm"]}
+    if cfg.tie_embeddings:
+        srv["embed_out"] = params["embed"]      # tied head lives server-side
+    else:
+        srv["lm_head"] = params["lm_head"]
+    return dev, srv
+
+
+def merge_params(dev: dict, srv: dict, cfg: ArchConfig) -> dict:
+    blocks = [tree_map(lambda a, b: torch.cat([a, b]), d, s)
+              for d, s in zip(dev["blocks"], srv["blocks"])]
+    out = {"embed": dev["embed"], "blocks": blocks,
+           "final_norm": srv["final_norm"]}
+    if "lm_head" in srv:
+        out["lm_head"] = srv["lm_head"]
+    return out
+
+
+def _positions(x):
+    return torch.arange(x.shape[1], device=x.device)[None, :]
+
+
+def device_forward(dev_params: dict, cfg: ArchConfig, tokens, *,
+                   use_kernel: bool = False, remat=True):
+    """The device-side block; returns activations (B, S, D)."""
+    h = dev_params["embed"][tokens]
+    return _run_stack(dev_params["blocks"], cfg, h, positions=_positions(h),
+                      use_kernel=use_kernel, remat=remat)
+
+
+def aux_head_loss(aux_params: dict, cfg: ArchConfig, acts, labels):
+    """Local loss f_d through the auxiliary network (Alg. 1 lines 7-8).
+    The aux block never takes the kernels, as in the JAX package."""
+    mixer, ffn = cfg.pattern[-1]
+    h = _apply_block(aux_params["block"], cfg, mixer, ffn, acts,
+                     positions=_positions(acts))
+    h = rmsnorm_apply(aux_params["norm"], h)
+    return _chunked_ce(
+        lambda hc: (hc @ aux_params["head_in"]) @ aux_params["head_out"],
+        h, labels, torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device), cfg.ce_chunk)
+
+
+def device_train_loss(dev_params: dict, aux_params: dict, cfg: ArchConfig,
+                      tokens, labels, *, use_kernel: bool = False,
+                      remat=True):
+    """Device-side objective F_d (Eq. 4).  Returns (loss, activations)."""
+    acts = device_forward(dev_params, cfg, tokens, use_kernel=use_kernel,
+                          remat=remat)
+    return aux_head_loss(aux_params, cfg, acts, labels), acts
+
+
+def server_forward_loss(srv_params: dict, cfg: ArchConfig, acts, labels, *,
+                        use_kernel: bool = False, remat=True):
+    """Server-side objective F_s (Eq. 5) on detached activations: no
+    gradient ever flows back to the devices."""
+    acts = acts.detach()
+    h = _run_stack(srv_params["blocks"], cfg, acts, positions=_positions(acts),
+                   use_kernel=use_kernel, remat=remat)
+    if h.requires_grad:
+        # Rows of the ring that no group has written yet are all zero and
+        # stay zero through every block, so their share of every param
+        # gradient is exactly 0.  Their input gradient, though, grows by
+        # rsqrt(eps) = 1e3 per RMSNorm; past ~13 blocks it overflows f32
+        # and 0 * inf turns every param gradient into NaN (the JAX
+        # reference does so at smollm's full depth).  Zeroing it keeps
+        # every gradient the reference computes where it stays finite.
+        live = acts.flatten(1).ne(0).any(dim=1).to(h.dtype)[:, None, None]
+        h.register_hook(lambda g: g * live)
+    h = rmsnorm_apply(srv_params["final_norm"], h)
+    head = {"lm_head": srv_params["lm_head"]} if "lm_head" in srv_params \
+        else {"embed": srv_params["embed_out"]}
+    return chunked_ce_loss(head, cfg, h, labels)

@@ -1,0 +1,91 @@
+"""Card-only tests of the torch port: each CUDA kernel against its plain
+version, and a smoke round with the kernels against the plain path.  This
+file imports no JAX, so it runs on the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each test decides inside itself whether a card exists and skips without
+one (the CUDA kernels have no CPU mode).  Tolerances are chip_smoke.py's:
+f32 forward 1e-4, f32 gradients 5e-4 + 1e-3·|ref| (sums over 1024 keys in
+another order), bf16 3e-2.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import registry as treg
+from repro_torch.core import control_plane as tcp
+from repro_torch.core import fedopt_step as TF
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref as tref
+from repro_torch.launch import train as ttrain
+from repro_torch.models.common import tree_map
+
+
+CUDA_CASES = [
+    ((2, 1024, 1024, 9, 3, 64), dict(causal=True), torch.float32),
+    ((2, 1000, 700, 9, 3, 64), dict(causal=True, window=256), torch.float32),
+    ((1, 256, 256, 4, 2, 32), dict(causal=True, logit_cap=20.0),
+     torch.float32),
+    ((1, 200, 300, 4, 1, 16), dict(causal=False), torch.float32),
+    ((1, 130, 130, 2, 2, 128), dict(causal=True), torch.float32),
+    ((2, 1024, 1024, 9, 3, 64), dict(causal=True), torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kw,dtype", CUDA_CASES)
+def test_cuda_kernels_match_plain(shape, kw, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    B, S, Skv, H, Hkv, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(dtype)
+    q, k, v, do = mk(B, H, S, hd), mk(B, Hkv, Skv, hd), mk(B, Hkv, Skv, hd), \
+        mk(B, H, S, hd)
+    f32 = dtype == torch.float32
+    ftol, btol = ((1e-4, 1e-4), (5e-4, 1e-3)) if f32 else ((3e-2,) * 2,) * 2
+    out, lse = fa.fa_fwd(q, k, v, **kw)
+    out_r, lse_r = tref.fa_fwd(q, k, v, **kw)
+    delta = torch.sum(do.float() * out_r.float(), dim=-1)
+    args = (q, k, v, do, lse_r, delta)
+    pairs = [(out, out_r, ftol), (lse, lse_r, ftol),
+             (fa.fa_bwd_dq(*args, **kw), tref.fa_bwd_dq(*args, **kw), btol)]
+    pairs += [(a, b, btol) for a, b in zip(fa.fa_bwd_dkv(*args, **kw),
+                                           tref.fa_bwd_dkv(*args, **kw))]
+    torch.cuda.synchronize()
+    for got, want, (atol, rtol) in pairs:
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_round_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg = TF.FedStepConfig(arch=treg.smoke_config("smollm-135m"), l_split=1,
+                           n_groups=2, seq_len=64, per_group_batch=4, H=2,
+                           omega=2)
+    state0 = TF.init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    plane = tcp.ControlPlane(2, cfg.omega, cfg.H)
+    rng = np.random.default_rng(0)
+    streams = ttrain._group_streams(cfg)
+    batches = []
+    for _ in range(2):
+        batches.append(ttrain._make_batch(cfg, streams, rng,
+                                          plane.plan_round(), "cuda"))
+        plane.finish_round()
+    losses = {}
+    for uk in (False, True):
+        step = TF.make_train_step(dataclasses.replace(cfg, use_kernel=uk))
+        state = tree_map(torch.clone, state0)
+        fa.reset_launches()
+        losses[uk] = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses[uk] += [float(m["d_loss"]), float(m["s_loss"])]
+    assert fa.launches["fa_fwd"] == 2 * cfg.H * (2 * 1 + 1)
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)

@@ -1,0 +1,249 @@
+"""The torch port's model functions against the JAX package's, on the same
+params (converted from the JAX init) and the same numpy inputs, for smoke
+smollm-135m: attention, the MLP, and the two halves' losses with their
+gradients, each with the flash-attention op on and off.  Tolerance: the
+reference's own gradient tolerance, 1e-4 (``tests/test_kernel_grads.py``
+GTOL); float32 matmuls of XLA and of torch on the CPU differ in their last
+bits.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jreg
+from repro.models import attention as jattn
+from repro.models import mlp as jmlp
+from repro.models import transformer as jtfm
+from repro_torch.configs import registry as treg
+from repro_torch.convert import state_from_numpy, state_to_numpy
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+from repro_torch.models import mlp as tmlp
+from repro_torch.models import transformer as ttfm
+from repro_torch.models.common import tree_map
+
+TOL = 1e-4
+ARCH = "smollm-135m"
+B, S = 2, 16
+
+
+def _close(got, want, tol=TOL):
+    jax.tree.map(lambda g, w: np.testing.assert_allclose(
+        g, np.asarray(w), atol=tol, rtol=tol), got, want)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    cfg = jreg.smoke_config(ARCH)
+    full = jtfm.init_params(jax.random.PRNGKey(0), cfg)
+    aux = jtfm.make_aux_params(jax.random.PRNGKey(1), cfg)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    acts = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    np_ = lambda t: jax.tree.map(np.asarray, t)
+    return dict(cfg=cfg, full=np_(full), aux=np_(aux), tokens=tokens,
+                labels=labels, acts=acts)
+
+
+def _leaves_grad(tree):
+    return tree_map(lambda x: x.requires_grad_(), tree)
+
+
+def test_smoke_and_full_configs_match_jax():
+    for name in ("full", "smoke"):
+        j = jreg.get(ARCH) if name == "full" else jreg.smoke_config(ARCH)
+        t = treg.get(ARCH) if name == "full" else treg.smoke_config(ARCH)
+        for f in dataclasses.fields(t):
+            assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
+        assert (t.n_periods, t.hd) == (j.n_periods, j.hd)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_attention_apply_matches_jax(setup, use_kernel):
+    cfg = setup["cfg"]
+    p = jax.tree.map(lambda x: x[0], setup["full"]["blocks"][0]["mixer"])
+    want = jattn.attention_apply(p, cfg.attn_cfg("attn"), setup["acts"],
+                                 use_kernel=use_kernel)
+    got = tattn.attention_apply(state_from_numpy(p, "cpu"),
+                                treg.smoke_config(ARCH).attn_cfg("attn"),
+                                torch.from_numpy(setup["acts"]),
+                                use_kernel=use_kernel)
+    _close(got.numpy(), want)
+
+
+def test_sdpa_reference_and_chunked_match_jax():
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 40, 4, 16), np.float32)
+    k = rng.standard_normal((2, 40, 2, 16), np.float32)
+    v = rng.standard_normal((2, 40, 2, 16), np.float32)
+    kw = dict(causal=True, window=12, logit_cap=20.0)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    _close(tattn.sdpa_reference(*t, **kw).numpy(),
+           jattn.sdpa_reference(q, k, v, **kw))
+    _close(tattn.sdpa_chunked(*t, chunk_q=16, **kw).numpy(),
+           jattn.sdpa_chunked(q, k, v, chunk_q=16, **kw))
+
+
+def test_mlp_apply_matches_jax(setup):
+    cfg = setup["cfg"]
+    p = jax.tree.map(lambda x: x[0], setup["full"]["blocks"][0]["ffn"])
+    want = jmlp.mlp_apply(p, cfg.mlp_cfg(), setup["acts"])
+    got = tmlp.mlp_apply(state_from_numpy(p, "cpu"),
+                         treg.smoke_config(ARCH).mlp_cfg(),
+                         torch.from_numpy(setup["acts"]))
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_device_train_loss_matches_jax(setup, use_kernel):
+    cfg = setup["cfg"]
+    dev, _ = jtfm.split_params(setup["full"], cfg, 1)
+    tok, lab = setup["tokens"], setup["labels"]
+
+    def jloss(d, a):
+        return jtfm.device_train_loss(d, a, cfg, tok, lab,
+                                      use_kernel=use_kernel)
+    (want_loss, want_acts), want_g = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(dev, setup["aux"])
+
+    d = _leaves_grad(state_from_numpy(dev, "cpu"))
+    a = _leaves_grad(state_from_numpy(setup["aux"], "cpu"))
+    loss, acts = ttfm.device_train_loss(
+        d, a, treg.smoke_config(ARCH), torch.from_numpy(tok).long(),
+        torch.from_numpy(lab).long(), use_kernel=use_kernel)
+    loss.backward()
+    _close(loss.item(), want_loss)
+    _close(acts.detach().numpy(), want_acts)
+    _close(state_to_numpy(tree_map(lambda x: x.grad, (d, a))), want_g)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_server_forward_loss_matches_jax(setup, use_kernel):
+    cfg = setup["cfg"]
+    _, srv = jtfm.split_params(setup["full"], cfg, 1)
+    acts, lab = setup["acts"], setup["labels"]
+    want, want_g = jax.jit(jax.value_and_grad(
+        lambda s: jtfm.server_forward_loss(s, cfg, acts, lab,
+                                           use_kernel=use_kernel)))(srv)
+    s = _leaves_grad(state_from_numpy(srv, "cpu"))
+    loss = ttfm.server_forward_loss(s, treg.smoke_config(ARCH),
+                                    torch.from_numpy(acts),
+                                    torch.from_numpy(lab).long(),
+                                    use_kernel=use_kernel)
+    loss.backward()
+    _close(loss.item(), want)
+    _close(state_to_numpy(tree_map(lambda x: x.grad, s)), want_g)
+
+
+def _counting(monkeypatch, name, calls):
+    inner = getattr(tref, name)
+
+    def counted(*a, **kw):
+        calls[name] += 1
+        return inner(*a, **kw)
+    monkeypatch.setattr(tref, name, counted)
+
+
+@pytest.mark.parametrize("remat,fwd_per_layer",
+                         [(False, 1), (True, 2), ("selective", 1)])
+def test_remat_keeps_values_and_selective_saves_the_forward(
+        setup, monkeypatch, remat, fwd_per_layer):
+    """remat changes memory, not values; under "selective" the backward
+    reuses the saved (out, lse) and never runs the forward kernel again."""
+    cfg = treg.smoke_config(ARCH).scaled(n_layers=3)
+    gen = torch.Generator().manual_seed(0)
+    params = ttfm.init_params(gen, cfg)
+    _, srv = ttfm.split_params(params, cfg, 1)
+    acts = torch.from_numpy(setup["acts"])
+    labels = torch.from_numpy(setup["labels"]).long()
+
+    def run(r):
+        s = _leaves_grad(tree_map(lambda x: x.detach().clone(), srv))
+        loss = ttfm.server_forward_loss(s, cfg, acts, labels,
+                                        use_kernel=True, remat=r)
+        loss.backward()
+        return loss.item(), state_to_numpy(tree_map(lambda x: x.grad, s))
+
+    want = run(False)
+    calls = {"fa_fwd": 0, "fa_bwd_dq": 0, "fa_bwd_dkv": 0}
+    for name in calls:
+        _counting(monkeypatch, name, calls)
+    got = run(remat)
+    n_layers = cfg.n_layers - 1
+    assert calls == {"fa_fwd": fwd_per_layer * n_layers,
+                     "fa_bwd_dq": n_layers, "fa_bwd_dkv": n_layers}
+    _close(got, want, tol=1e-6)
+
+
+@pytest.mark.parametrize("name,hyper", [("sgd", {}), ("sgd", dict(momentum=0.9)),
+                                        ("adamw", {})])
+def test_optimizers_match_jax(name, hyper):
+    from repro.optim.optimizers import make_optimizer as jmake
+    from repro_torch.optim.optimizers import make_optimizer as tmake
+    rng = np.random.default_rng(0)
+    params = {"w": rng.standard_normal((5, 3)).astype(np.float32),
+              "b": [rng.standard_normal(3).astype(np.float32)]}
+    jinit, jupd = jmake(name, **dict(hyper))
+    tinit, tupd = tmake(name, **dict(hyper))
+    jp, js = params, jinit(params)
+    tp = state_from_numpy(params, "cpu")
+    ts = tinit(tp)
+    for _ in range(3):
+        grads = jax.tree.map(
+            lambda x: rng.standard_normal(x.shape).astype(np.float32), params)
+        jp, js = jupd(jp, grads, js, 0.05)
+        tp, ts = tupd(tp, state_from_numpy(grads, "cpu"), ts, 0.05)
+    _close(state_to_numpy((tp, ts)), (jp, js), tol=1e-6)
+
+
+def test_split_and_merge_params_round_trip(setup):
+    cfg = treg.smoke_config(ARCH)
+    full = state_from_numpy(setup["full"], "cpu")
+    dev, srv = ttfm.split_params(full, cfg, 1)
+    jdev, jsrv = jtfm.split_params(setup["full"], setup["cfg"], 1)
+    _close(state_to_numpy((dev, srv)), (jdev, jsrv), tol=0)
+    _close(state_to_numpy(ttfm.merge_params(dev, srv, cfg)), setup["full"],
+           tol=0)
+
+
+@pytest.mark.parametrize("n_layers", [3, 27])
+def test_server_grads_on_unwritten_ring_rows(n_layers):
+    """A ring slot row no group has written is all zero.  At 3 server
+    layers the JAX gradients are finite and the port's equal them; at
+    smollm's 27 they overflow to NaN in the reference (1e3 per RMSNorm in
+    the input gradient, times the rows' zero activations), while the
+    port's stay finite and keep the live rows' share.  Smoke widths: the
+    overflow depends on depth, not width."""
+    jcfg = jreg.smoke_config(ARCH).scaled(n_layers=n_layers + 1)
+    full = jax.tree.map(np.asarray,
+                        jtfm.init_params(jax.random.PRNGKey(0), jcfg))
+    _, srv = jtfm.split_params(full, jcfg, 1)
+    rng = np.random.default_rng(0)
+    acts = rng.standard_normal((2, 8, jcfg.d_model)).astype(np.float32)
+    acts[1] = 0.0                                   # an unwritten row
+    labels = rng.integers(0, jcfg.vocab, (2, 8)).astype(np.int32)
+    want, want_g = jax.jit(jax.value_and_grad(
+        lambda s: jtfm.server_forward_loss(s, jcfg, acts, labels)))(srv)
+    s = _leaves_grad(state_from_numpy(srv, "cpu"))
+    loss = ttfm.server_forward_loss(
+        s, treg.smoke_config(ARCH).scaled(n_layers=n_layers + 1),
+        torch.from_numpy(acts), torch.from_numpy(labels).long())
+    loss.backward()
+    got_g = state_to_numpy(tree_map(lambda x: x.grad, s))
+    _close(loss.item(), want)
+    assert all(np.isfinite(g).all() for g in jax.tree.leaves(got_g))
+    if n_layers == 3:
+        _close(got_g, want_g)
+    else:
+        assert any(np.isnan(g).any() for g in jax.tree.leaves(want_g))
+        # only the live row trains: its own gradients, computed alone
+        s1 = _leaves_grad(state_from_numpy(srv, "cpu"))
+        ttfm.server_forward_loss(
+            s1, treg.smoke_config(ARCH).scaled(n_layers=n_layers + 1),
+            torch.from_numpy(acts[:1]), torch.from_numpy(labels[:1]).long()
+        ).backward()
+        _close(got_g, state_to_numpy(tree_map(lambda x: x.grad / 2, s1)))
