@@ -8,20 +8,25 @@ exits non-zero:
 
 1. device — the card's name and power limit, torch and CUDA versions; no
    CUDA device is an error.  TF32 is set off and stated.
-2. build — the three flash-attention kernels are compiled from
+2. build — the five kernels are compiled from
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel);
    build time and ptxas registers / shared memory per kernel.
-3. kernels — each kernel against its plain PyTorch version on the card, at
-   smollm-135m's attention shape (B=2 and B=8, S=1024, 9:3 heads, hd 64,
-   causal, f32) and at ragged S, S != Skv, window, soft-cap, MHA, MQA,
-   bf16 and the other head dims; times (CUDA events, median of 30 after
-   warm-up) beside the plain version, PyTorch's SDPA and the card's bound.
-4. main path — the pod round of full-width smollm-135m (G=4, batch 8, H=4,
-   seq 1024, l_split 3, ω=1): two rounds with the kernels and two with the
-   plain ``sdpa_chunked`` path from the same state, batches and plans,
-   whose losses must agree; then three rounds of the driver
-   (``repro_torch.launch.train.run_pod``) with the kernels, with every
-   kernel's launches counted per round.
+3. kernels — each kernel against its plain PyTorch version on the card.
+   Flash attention at smollm-135m's attention shape (B=2 and B=8, S=1024,
+   9:3 heads, hd 64, causal, f32) and at ragged S, S != Skv, window,
+   soft-cap, MHA, MQA, bf16 and the other head dims; SSD at mamba2-780m's
+   shape (B=2 and B=8, T=1024, 48 heads, P 64, G 1, N 128, Q 256, f32),
+   ragged T, T < Q, grouped B/C, the smoke shape and a large decay.  At the
+   main shapes, times (CUDA events, median of 30 after warm-up) beside the
+   plain version, one PyTorch call for the same function where there is
+   one (SDPA) and the card's bound.
+4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
+   H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
+   same with l_split 6): two rounds with the kernels and two with the plain
+   path (``sdpa_chunked``, ``ssd_chunked``) from the same state, batches
+   and plans, whose losses must agree; one profiled round; then three
+   rounds of the driver (``repro_torch.launch.train.run_pod``) with the
+   kernels, with every kernel's launches counted per round.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -45,18 +50,35 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 TOL = {("float32", "fwd"): (1e-4, 1e-4), ("float32", "bwd"): (5e-4, 1e-3),
        ("bfloat16", "fwd"): (3e-2, 3e-2), ("bfloat16", "bwd"): (3e-2, 3e-2)}
-KERNELS = {
+# SSD, f32: |got - want| <= 1e-4 scale + 1e-3 |want|, with the scale of
+# each output's head from ``ref.ssd_scales`` (the largest |want| of the
+# head; for dA the summed size of its terms).  The absolute part follows
+# each head's size: ddt = dla A + <dxb, x> cancels two terms up to |A| = 48
+# times larger than itself, and the chunk's log-decay |L| ~ 1e3 rounds to
+# ~1e-4 in float32 in any form.  Against a float64 evaluation the float32
+# plain version itself misses an elementwise 1e-4 + 1e-3 |ref| on ddt and
+# meets this one (tests/test_torch_ssd.py::
+# test_ddt_tolerance_follows_its_conditioning).
+SSD_TOL = (1e-4, 1e-3)
+KERNELS = {  # name: (source, the TPU kernel it replaces, its main path)
     "fa_fwd": ("src/repro_torch/kernels/csrc/fa_fwd.cu",
-               "src/repro/kernels/flash_attention.py:63"),
+               "src/repro/kernels/flash_attention.py:63", "smollm-135m"),
     "fa_bwd_dq": ("src/repro_torch/kernels/csrc/fa_bwd_dq.cu",
-                  "src/repro/kernels/flash_attention.py:226"),
+                  "src/repro/kernels/flash_attention.py:226", "smollm-135m"),
     "fa_bwd_dkv": ("src/repro_torch/kernels/csrc/fa_bwd_dkv.cu",
-                   "src/repro/kernels/flash_attention.py:266"),
+                   "src/repro/kernels/flash_attention.py:266", "smollm-135m"),
+    "ssd_fwd": ("src/repro_torch/kernels/csrc/ssd_fwd.cu",
+                "src/repro/kernels/ssd.py:52", "mamba2-780m"),
+    "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu",
+                "src/repro/kernels/ssd.py:140", "mamba2-780m"),
 }
-MAIN_ARGS = ["--mode", "pod", "--full", "--arch", "smollm-135m",
-             "--groups-per-shard", "4", "--batch", "8", "--H", "4",
-             "--seq-len", "1024", "--l-split", "3", "--omega", "1",
+MAIN_ARGS = ["--mode", "pod", "--full", "--groups-per-shard", "4",
+             "--batch", "8", "--H", "4", "--seq-len", "1024", "--omega", "1",
              "--use-kernel", "--device", "cuda"]
+MAIN_PATHS = {  # arch: its own flags
+    "smollm-135m": ["--arch", "smollm-135m", "--l-split", "3"],
+    "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "6"],
+}
 
 
 def smi_name_power() -> str:
@@ -82,8 +104,8 @@ def phase_device(torch):
           f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
 
 
-def phase_build(fa):
-    info = fa.build()
+def phase_build(build):
+    info = build.build()
     print(f"[build] {info.path.name}: {info.seconds:.1f} s"
           f"{' (cached)' if info.cached else ''}", flush=True)
     for src, log in info.ptxas.items():
@@ -145,14 +167,16 @@ def _median_ms(torch, fn, n=30, warmup=5):
     return statistics.median(times)
 
 
-def _close(torch, name, got, want, atol, rtol):
+def _close(torch, name, got, want, atol, rtol, atol_text=None):
+    """``atol`` is a number or a tensor that broadcasts against ``want``."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     max_abs = err.max().item()
     ok = bool((err <= atol + rtol * want.abs()).all()) and \
         bool(torch.isfinite(got).all())
     print(f"[kernels]   {name:5s} max_abs_err {max_abs:.3e}  "
-          f"(limit {atol:g} + {rtol:g}*|ref|)  {'ok' if ok else 'FAIL'}")
+          f"(limit {atol_text or f'{atol:g}'} + {rtol:g}*|ref|)  "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return max_abs
@@ -250,8 +274,112 @@ def phase_kernels(torch, fa, ref) -> dict:
     return record
 
 
+SSD_CASES = [
+    # name, (B, T, H, P, G, N, chunk), A's most negative value
+    ("main-dev", (2, 1024, 48, 64, 1, 128, 256), -48.0),
+    ("main-srv", (8, 1024, 48, 64, 1, 128, 256), -48.0),
+    ("ragged", (2, 1000, 48, 64, 1, 128, 256), -48.0),
+    ("T<Q", (2, 100, 48, 64, 1, 128, 256), -48.0),
+    ("grouped", (2, 1024, 8, 64, 2, 128, 256), -8.0),
+    ("smoke", (2, 16, 8, 16, 1, 16, 8), -8.0),
+    ("large-decay", (1, 256, 48, 64, 1, 128, 256), -48.0),
+]
+
+
+def _ssd_inputs(torch, shape, a_min, seed, large_decay):
+    """x ~ N(0, 1), dt log-normal around 0.1 (the top of mamba2's dt
+    range; exactly 0.1 for the large-decay case), A from -1 down to a_min
+    (mamba2's init has -1 .. -H), B, C ~ N(0, 1/4), dy ~ N(0, 1); T padded
+    to a chunk multiple with zero dt and x, as ``ops.ssd`` pads."""
+    from repro_torch.kernels.ref import pad_steps
+    B, T, H, P, G, N, chunk = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    x = mk(B, T, H, P)
+    dt = torch.full((B, T, H), 0.1, device="cuda") if large_decay else \
+        0.1 * torch.exp(0.5 * mk(B, T, H))
+    A = -torch.linspace(1.0, -a_min, H, device="cuda")
+    Bm, Cm, dy = mk(B, T, G, N) * 0.5, mk(B, T, G, N) * 0.5, mk(B, T, H, P)
+    Q = min(chunk, T)
+    pad = (-T) % Q
+    x, dt, Bm, Cm, dy = (pad_steps(t, pad).contiguous()
+                         for t in (x, dt, Bm, Cm, dy))
+    return (x, dt, A, Bm, Cm), dy, Q
+
+
+def _ssd_bounds(shape, Q):
+    """Least time (ms) for each SSD kernel at this shape: the larger of its
+    bytes (each input read once, each output written once) over the HBM
+    rate and its float32 flops (2 per multiply-add) over the CUDA-core
+    peak, counting only the Q (Q + 1) / 2 pairs s <= t of each chunk, and
+    the score product C·Bᵀ once per (batch, group, chunk): every head of a
+    group shares it."""
+    B, T, H, P, G, N, _ = shape
+    T += (-T) % Q
+    nc = T // Q
+    blocks, pairs = B * H * nc, Q * (Q + 1) // 2
+    scores = B * G * nc * pairs * N
+    x_b, dt_b, bc_b = B * T * H * P * 4, B * T * H * 4, B * T * G * N * 4
+    st_b = B * H * nc * N * P * 4
+    work = {  # name: (multiply-adds, bytes)
+        "ssd_fwd": (scores + blocks * (pairs * P + 2 * Q * N * P),
+                    2 * x_b + dt_b + H * 4 + 2 * bc_b + st_b),
+        "ssd_bwd": (scores + blocks * (pairs * (2 * N + 2 * P)
+                                       + 4 * Q * N * P),
+                    3 * x_b + 2 * dt_b + 2 * H * 4 + 4 * bc_b + st_b),
+    }
+    out = {}
+    for name, (macs, nbytes) in work.items():
+        t_ops, t_bytes = 2 * macs / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
+    record = {}
+    for seed, (case, shape, a_min) in enumerate(SSD_CASES):
+        large = case == "large-decay"
+        args, dy, Q = _ssd_inputs(torch, shape, a_min, seed, large)
+        print(f"[kernels] ssd {case}: B,T,H,P,G,N,chunk={shape} A down to "
+              f"{a_min} dt {'0.1' if large else '~0.1'}, chunk used {Q}",
+              flush=True)
+        y, st = ssd_k.ssd_fwd(*args, chunk=Q)
+        y_r, st_r = ref.ssd_fwd(*args, chunk=Q)
+        bwd_in = (*args, st_r, dy)
+        grads = ssd_k.ssd_bwd(*bwd_in, chunk=Q)
+        grads_r = ref.ssd_bwd(*bwd_in, chunk=Q)
+        torch.cuda.synchronize()
+        names = ("y", "states", "dx", "ddt", "dA", "dB", "dC")
+        want = dict(zip(names, (y_r, st_r, *grads_r)))
+        scale = ref.ssd_scales(*args[:3], want)
+        err = {n: _close(torch, n, got, want[n], SSD_TOL[0] * scale[n],
+                         SSD_TOL[1], f"{SSD_TOL[0]:g}*scale of its head")
+               for n, got in zip(names, (y, st, *grads))}
+        err = {"ssd_fwd": max(err[n] for n in names[:2]),
+               "ssd_bwd": max(err[n] for n in names[2:])}
+        if not case.startswith("main"):
+            continue
+        runs = {"ssd_fwd": (lambda: ssd_k.ssd_fwd(*args, chunk=Q),
+                            lambda: ref.ssd_fwd(*args, chunk=Q)),
+                "ssd_bwd": (lambda: ssd_k.ssd_bwd(*bwd_in, chunk=Q),
+                            lambda: ref.ssd_bwd(*bwd_in, chunk=Q))}
+        bounds = _ssd_bounds(shape, Q)
+        for name, (kern, plain) in runs.items():
+            ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
+            bound_ms, bound_by = bounds[name]
+            print(f"[kernels]   {name:10s} {ms:.4f} ms | plain {plain_ms:.4f}"
+                  f" ms | library: none | bound {bound_ms:.4f} ms "
+                  f"({bound_by})", flush=True)
+            rec = dict(shape=list(shape), max_abs_err=err[name], ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+            record.setdefault(name, {})[case] = rec
+    return record
+
+
 # ---------------------------------------------------------------------------
-# 4. the main path
+# 4. the main paths
 # ---------------------------------------------------------------------------
 
 def profile_round(torch, step, state, batch, top=12):
@@ -279,7 +407,25 @@ def profile_round(torch, step, state, batch, top=12):
         print(f"[profile]   {ms:9.2f} ms {ms / busy:6.1%}  {name[:100]}")
 
 
-def phase_main(torch, fa) -> dict:
+def _describe(cfg) -> str:
+    arch = cfg.arch
+    if arch.pattern[0][0] == "mamba":
+        m = arch.mamba_cfg()
+        mixer = (f"SSD heads {m.n_heads}, N {m.d_state}, P {m.head_dim}, "
+                 f"chunk {m.chunk}")
+    else:
+        mixer = f"heads {arch.n_heads}:{arch.n_kv_heads}"
+    return (f"{arch.name} full width: {arch.n_layers} layers, d_model "
+            f"{arch.d_model}, {mixer}, G={cfg.n_groups}, batch "
+            f"{cfg.per_group_batch}, H={cfg.H}, seq {cfg.seq_len}, l_split "
+            f"{cfg.l_split}, omega {cfg.omega}, remat {cfg.remat!r}")
+
+
+def phase_main(torch, arch: str, counters) -> dict:
+    """One main path: kernels vs plain, a profiled round, and the driver.
+    ``counters`` are the kernel modules whose ``launches`` the driver's
+    rounds read; this path's kernels must each launch once per block per
+    micro-iteration, every other kernel never."""
     import numpy as np
 
     from repro_torch.core import fedopt_step as F
@@ -287,18 +433,17 @@ def phase_main(torch, fa) -> dict:
     from repro_torch.launch import train
     from repro_torch.models.common import tree_leaves, tree_map
 
-    args = train.build_parser().parse_args(MAIN_ARGS + ["--rounds", "3"])
+    t_phase = time.perf_counter()
+    args = train.build_parser().parse_args(MAIN_ARGS + MAIN_PATHS[arch] +
+                                           ["--rounds", "3"])
     cfg = train.pod_config(args)
-    print(f"[main] {cfg.arch.name} full width: {cfg.arch.n_layers} layers, "
-          f"d_model {cfg.arch.d_model}, heads {cfg.arch.n_heads}:"
-          f"{cfg.arch.n_kv_heads}, G={cfg.n_groups}, batch "
-          f"{cfg.per_group_batch}, H={cfg.H}, seq {cfg.seq_len}, l_split "
-          f"{cfg.l_split}, omega {cfg.omega}, remat {cfg.remat!r}",
-          flush=True)
+    print(f"[main] {_describe(cfg)}", flush=True)
     per_round = cfg.H * (cfg.n_groups * cfg.l_split
                          + cfg.arch.n_layers - cfg.l_split)
+    want = {name: per_round if KERNELS[name][2] == arch else 0
+            for c in counters for name in c.launches}
 
-    # 4a: kernels vs plain sdpa_chunked, same state, batches and plans
+    # 4a: kernels vs the plain path, same state, batches and plans
     state0 = F.init_train_state(
         torch.Generator(device="cuda").manual_seed(args.seed), cfg)
     cplane = ControlPlane(cfg.n_groups, cfg.omega, cfg.H)
@@ -325,17 +470,21 @@ def phase_main(torch, fa) -> dict:
                   f"({time.perf_counter() - t0:.2f} s)", flush=True)
         finals[use_kernel] = {k: state[k] for k in ("dev", "aux", "srv")}
         del state, step
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in tree_leaves(finals[True]))
     diff = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(finals[True]), tree_leaves(finals[False])))
     print(f"[main] params after 2 rounds, kernel vs plain: max abs diff "
-          f"{diff:.3e}")
+          f"{diff:.3e}, all finite {finite}")
     del finals
+    if not finite:
+        raise AssertionError("non-finite params after the kernel rounds")
     for r, (a, b) in enumerate(zip(losses[True], losses[False])):
         for key in ("d_loss", "s_loss"):
             rel = abs(a[key] - b[key]) / abs(b[key])
             print(f"[main] round {r + 1} {key}: kernel {a[key]:.6f} plain "
                   f"{b[key]:.6f} rel diff {rel:.2e} (limit 1e-3)")
-            if not rel <= 1e-3:
+            if not (rel <= 1e-3 and math.isfinite(a[key])):
                 raise AssertionError(f"round {r + 1} {key}: kernel and plain "
                                      "paths disagree")
     profile_round(torch, F.make_train_step(cfg), tree_map(torch.clone, state0),
@@ -346,9 +495,13 @@ def phase_main(torch, fa) -> dict:
     counts, walls = [], []
     t_prev = [time.perf_counter()]
 
+    def reset():
+        for c in counters:
+            c.reset_launches()
+
     def on_round(r, m):
-        counts.append(dict(fa.launches))
-        fa.reset_launches()
+        counts.append({k: v for c in counters for k, v in c.launches.items()})
+        reset()
         now = time.perf_counter()
         walls.append(now - t_prev[0])
         t_prev[0] = now
@@ -356,7 +509,7 @@ def phase_main(torch, fa) -> dict:
     args.on_round = on_round
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
+    reset()
     t_prev[0] = time.perf_counter()
     out = train.run_pod(args)
     peak = torch.cuda.max_memory_allocated()
@@ -367,15 +520,15 @@ def phase_main(torch, fa) -> dict:
               f"({w:.3f} s) | launches {c}", flush=True)
         if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
             raise AssertionError(f"round {r + 1}: non-finite loss {m}")
-        if any(n != per_round for n in c.values()):
-            raise AssertionError(f"round {r + 1}: launches {c}, want "
-                                 f"{per_round} of each kernel")
+        if c != want:
+            raise AssertionError(f"round {r + 1}: launches {c}, want {want}")
     tok_s = [tokens / w for w in walls]
     print(f"[main] tok/s per round {[round(t, 1) for t in tok_s]}, median "
           f"{statistics.median(tok_s):,.1f} | peak memory "
           f"{peak / 2**30:.2f} GiB | launches per round {per_round} of each "
-          "kernel", flush=True)
-    totals = {name: sum(c[name] for c in counts) for name in fa.launches}
+          f"of {[k for k, n in want.items() if n]} | phase "
+          f"{time.perf_counter() - t_phase:.0f} s", flush=True)
+    totals = {name: sum(c[name] for c in counts) for name in want}
     return {"launches": totals, "launches_per_round": counts,
             "tok_s": tok_s, "peak_bytes": peak}
 
@@ -383,19 +536,25 @@ def phase_main(torch, fa) -> dict:
 def main() -> int:
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as ssd_k
 
+    t0 = time.perf_counter()
     phase_device(torch)
-    phase_build(fa)
+    phase_build(build)
     record = phase_kernels(torch, fa, ref)
-    main_path = phase_main(torch, fa)
+    record.update(phase_ssd_kernels(torch, ssd_k, ref))
+    print(f"[time] device, build and kernels: {time.perf_counter() - t0:.0f}"
+          " s", flush=True)
+    paths = {arch: phase_main(torch, arch, (fa, ssd_k)) for arch in MAIN_PATHS}
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, arch) in KERNELS.items():
         rec = record[name]["main-srv"]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": main_path["launches"][name],
+                        "launches": paths[arch]["launches"][name],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                         "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
@@ -403,6 +562,7 @@ def main() -> int:
                         "library_ms": rec["library_ms"],
                         "shape": rec["shape"],
                         "device_shape": record[name]["main-dev"]})
+    print(f"[time] total {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-This slice of the port registers the architectures whose layers it runs:
-``smollm-135m``.  ``smoke_config`` is the JAX registry's reduction (same
-family and pattern, tiny dims, runnable on CPU).
+The port registers the architectures whose layers it runs:
+``smollm-135m`` and ``mamba2-780m``.  ``smoke_config`` is the JAX
+registry's reduction (same family and pattern, tiny dims, runnable on
+CPU).
 """
 from __future__ import annotations
 
 from repro_torch.models.api import ArchConfig
 
-from . import smollm_135m
+from . import mamba2_780m, smollm_135m
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (smollm_135m.CONFIG,)}
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in (smollm_135m.CONFIG,
+                                                    mamba2_780m.CONFIG)}
 
 
 def get(name: str) -> ArchConfig:
@@ -23,8 +25,11 @@ def get(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     cfg = get(name)
-    return cfg.scaled(
+    kw = dict(
         n_layers=2 * cfg.period, d_model=64, n_heads=4,
         n_kv_heads=max(1, 4 * cfg.n_kv_heads // cfg.n_heads), head_dim=16,
         d_ff=0 if cfg.d_ff == 0 else 96, vocab=211,
         window=8 if cfg.window else None, aux_dim=32, ce_chunk=64)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=8)
+    return cfg.scaled(**kw)

@@ -46,7 +46,7 @@ class FedStepConfig:
     pipeline_acts: bool = True        # server trains on ring-scheduled acts
     omega: int = 1                    # activation-ring depth (Eq. 3 cap ω)
     remat: Any = "selective"          # True | False | "selective"
-    use_kernel: bool = False          # flash-attention kernels in both halves
+    use_kernel: bool = False          # attention/SSD kernels, both halves
     agg_compress: bool = False        # int8 aggregation payload
     server_accum: bool = False        # one server optimizer step per round
 

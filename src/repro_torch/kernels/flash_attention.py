@@ -1,43 +1,24 @@
-"""The three flash-attention kernels: build, binding and launch wrappers.
+"""The three flash-attention kernels: binding and launch wrappers.
 
-The CUDA sources in ``csrc/`` (one per kernel, plus a shared header) are
-compiled by ``nvcc`` for ``sm_90a`` at first use, each source by its own
-``nvcc`` process in parallel, and linked into one shared library with a
-plain C interface under ``build/repro_torch_kernels/`` at the repository
-root.  The library's name carries a hash of the sources and flags, so an
-edited source is rebuilt.  It is loaded with ``ctypes``.
-
-Each wrapper takes the kernels' layout — q, o, do (B, H, S, hd), k, v
-(B, Hkv, Skv, hd), lse and delta (B, H, S) float32 — and checks device,
-dtype, shape and contiguity.  On CPU tensors it runs the plain version in
-``ref.py``; on CUDA tensors it launches its kernel on the current stream
-without synchronising, raises if the launch failed, and adds one to its
-entry of :data:`launches`.  There is no fallback from one to the other.
+The kernels (``csrc/fa_*.cu``) live in the library that ``build.py``
+compiles at first use.  Each wrapper takes the kernels' layout — q, o, do
+(B, H, S, hd), k, v (B, Hkv, Skv, hd), lse and delta (B, H, S) float32 —
+and checks device, dtype, shape and contiguity.  On CPU tensors it runs
+the plain version in ``ref.py``; on CUDA tensors it launches its kernel on
+the current stream without synchronising, raises if the launch failed,
+and adds one to its entry of :data:`launches`.  There is no fallback from
+one to the other.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
-from . import ref
+from . import build, ref
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fa_fwd.cu", "fa_bwd_dq.cu", "fa_bwd_dkv.cu")
-HEADERS = ("fa_common.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,84 +31,12 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-# ---------------------------------------------------------------------------
-# Build and load
-# ---------------------------------------------------------------------------
-
-@dataclass(frozen=True)
-class BuildInfo:
-    path: Path
-    seconds: float        # wall time of this build; 0.0 when it was cached
-    ptxas: dict           # source -> nvcc/ptxas output (-Xptxas -v)
-    cached: bool
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ((home and os.path.join(home, "bin", "nvcc")),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
-                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in HEADERS + SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
-
-
-def build() -> BuildInfo:
-    """Compile the kernel library (each source in its own ``nvcc``, all at
-    once), or find it already built from the same sources."""
-    lib = BUILD_DIR / f"libfa_{_digest()}.so"
-    if lib.exists():
-        return BuildInfo(lib, 0.0, {}, cached=True)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
-        procs = []
-        try:
-            for src, obj in zip(SOURCES, objs):
-                procs.append(subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                     str(CSRC / src), "-o", obj],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
-            logs = {src: p.communicate()[0] for src, p in zip(SOURCES, procs)}
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for src, p in zip(SOURCES, procs):
-            if p.returncode:
-                raise RuntimeError(f"nvcc failed on {src}:\n{logs[src]}")
-        tmp_lib = os.path.join(tmp, lib.name)
-        link = subprocess.run([nvcc, "-shared", "-o", tmp_lib, *objs],
-                              capture_output=True, text=True)
-        if link.returncode:
-            raise RuntimeError(f"linking {lib.name} failed:\n{link.stdout}"
-                               f"{link.stderr}")
-        os.replace(tmp_lib, lib)
-    return BuildInfo(lib, time.perf_counter() - t0, logs, cached=False)
-
-
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
+def _fn(name: str):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    scalars = [i32] * 9 + [f32, f32, vp]   # dtype..window, cap, scale, stream
-    for name, n_ptr in (("fa_fwd", 5), ("fa_bwd_dq", 7), ("fa_bwd_dkv", 8)):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp] * n_ptr + scalars
-        fn.restype = i32
-    return lib
+    n_ptr = {"fa_fwd": 5, "fa_bwd_dq": 7, "fa_bwd_dkv": 8}[name]
+    # pointers, dtype..window, cap, scale, stream
+    return build.function(name, [vp] * n_ptr + [i32] * 9 + [f32, f32, vp])
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +91,7 @@ def _launch(name: str, ptrs, q, k, *, causal, window, logit_cap) -> None:
     Hkv, Skv = k.shape[1], k.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(_library(), name)(
+        rc = _fn(name)(
             *[t.data_ptr() for t in ptrs], _DTYPE_CODE[q.dtype], hd, B, H,
             Hkv, S, Skv, int(causal), int(window or 0),
             float(logit_cap or 0.0), 1.0 / math.sqrt(hd), stream)

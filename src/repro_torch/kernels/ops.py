@@ -1,13 +1,15 @@
-"""Differentiable flash attention over the three kernels.
+"""Differentiable flash attention and SSD over the five kernels.
 
-The three launches are registered as ``torch.library`` custom ops
-(``repro_torch::fa_fwd``, ``fa_bwd_dq``, ``fa_bwd_dkv``), each with a fake
-implementation, so that a selective-checkpoint policy can see them: under
-``remat="selective"`` the forward's (out, lse) are saved and the backward
-never launches the forward kernel again (the JAX package's "kernel_out"
-checkpoint name).  ``_FlashAttention`` is the ``custom_vjp`` of the JAX
-``kernels/ops.py``: forward kernel, then Δ = rowsum(dO ⊙ O) as a torch op,
-then the dq and dk/dv kernels.
+Every launch is registered as a ``torch.library`` custom op
+(``repro_torch::fa_fwd``, ``fa_bwd_dq``, ``fa_bwd_dkv``, ``ssd_fwd``,
+``ssd_bwd``), each with a fake implementation, so that a selective-
+checkpoint policy can see them: under ``remat="selective"`` the forward
+kernels' outputs — (out, lse) and (y, states) — are saved and the backward
+never launches a forward kernel again (the JAX package's "kernel_out"
+checkpoint name).  ``_FlashAttention`` and ``_SSD`` are the ``custom_vjp``s
+of the JAX ``kernels/ops.py``: for attention the forward kernel, then
+Δ = rowsum(dO ⊙ O) as a torch op, then the dq and dk/dv kernels; for SSD
+the chunked-scan forward, then the reverse-scan backward.
 """
 # No `from __future__ import annotations`: torch.library reads the op
 # schemas from the annotations at registration.
@@ -16,6 +18,8 @@ from typing import Optional
 import torch
 
 from . import flash_attention as fa
+from . import ssd as ssd_k
+from .ref import pad_steps
 
 
 @torch.library.custom_op("repro_torch::fa_fwd", mutates_args=())
@@ -61,8 +65,37 @@ def _(q, k, v, do, lse, delta, causal, window, logit_cap):
             k.new_empty(k.shape, dtype=torch.float32))
 
 
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=())
+def _ssd_fwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor,
+                chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return ssd_k.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+@_ssd_fwd_op.register_fake
+def _(x, dt, A, Bm, Cm, chunk):
+    b, T, H, P = x.shape
+    return torch.empty_like(x), x.new_empty(b, H, T // chunk, Bm.shape[3], P)
+
+
+@torch.library.custom_op("repro_torch::ssd_bwd", mutates_args=())
+def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, states: torch.Tensor,
+                dy: torch.Tensor, chunk: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    return ssd_k.ssd_bwd(x, dt, A, Bm, Cm, states, dy, chunk=chunk)
+
+
+@_ssd_bwd_op.register_fake
+def _(x, dt, A, Bm, Cm, states, dy, chunk):
+    return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+            torch.empty_like(Bm), torch.empty_like(Cm))
+
+
 #: Ops whose outputs the selective-remat policy saves (models/transformer).
-SAVED_OPS = (torch.ops.repro_torch.fa_fwd.default,)
+SAVED_OPS = (torch.ops.repro_torch.fa_fwd.default,
+             torch.ops.repro_torch.ssd_fwd.default)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -98,3 +131,39 @@ def flash_attention(q, k, v, *, causal: bool = True,
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     out = _FlashAttention.apply(qt, kt, vt, causal, window, logit_cap)
     return out.transpose(1, 2)
+
+
+class _SSD(torch.autograd.Function):
+    """x (B, T, H, P), dt (B, T, H), A (H,), Bm/Cm (B, T, G, N), T a
+    multiple of ``chunk`` -> y (B, T, H, P)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        y, states = torch.ops.repro_torch.ssd_fwd(x, dt, A, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, states)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, Bm, Cm, states = ctx.saved_tensors
+        grads = torch.ops.repro_torch.ssd_bwd(
+            x, dt, A, Bm, Cm, states, dy.float().contiguous(), ctx.chunk)
+        return (*(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, Bm, Cm))),
+                None)
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """Chunked SSD sequence mixer.  x: (B, T, H, P); dt: (B, T, H);
+    A: (H,); Bm, Cm: (B, T, G, N) -> y (B, T, H, P).  Differentiable
+    (reverse chunk scan).  ``chunk`` is clamped to T, then T is padded to a
+    chunk multiple (zero dt ⇒ identity decay, zero input ⇒ no state
+    change), as the JAX ``ops.ssd`` does."""
+    T = x.shape[1]
+    chunk = min(chunk, T)
+    if chunk < 1:
+        raise ValueError(f"empty sequence: T={T}")
+    pad = (-T) % chunk
+    x, dt, Bm, Cm = (pad_steps(t, pad).contiguous() for t in (x, dt, Bm, Cm))
+    y = _SSD.apply(x, dt, A.contiguous(), Bm, Cm, chunk)
+    return y[:, :T]

@@ -12,11 +12,14 @@ staleness accounting and prints one ``round N d_loss … s_loss …`` line.
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
 plain versions.
 
-Example::
+Examples::
 
     python -m repro_torch.launch.train --mode pod --full --arch smollm-135m \\
         --use-kernel --groups-per-shard 4 --batch 8 --H 4 --seq-len 1024 \\
         --l-split 3 --omega 1 --rounds 3
+    python -m repro_torch.launch.train --mode pod --full --arch mamba2-780m \\
+        --use-kernel --groups-per-shard 4 --batch 8 --H 4 --seq-len 1024 \\
+        --l-split 6 --omega 1 --rounds 3
 """
 from __future__ import annotations
 
@@ -181,7 +184,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="staleness cap D for aggregation (Alg. 4)")
     p.add_argument("--use-kernel", action="store_true",
                    help="run attention through the CUDA flash-attention "
-                        "kernels (forward, dq, dk/dv)")
+                        "kernels (forward, dq, dk/dv) and Mamba2's SSD "
+                        "through the CUDA SSD kernels (forward, backward)")
     p.add_argument("--groups-per-shard", type=int, default=4,
                    help="FL device groups on the card")
     p.add_argument("--p-drop", type=float, default=0.0)

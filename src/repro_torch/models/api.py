@@ -3,14 +3,15 @@
 One :class:`ArchConfig` describes a decoder LM whose layer stack repeats a
 *period*: ``pattern`` lists (mixer, ffn) pairs and the stack is
 ``pattern * n_periods``.  Per-position params are stacked over periods,
-leaves shaped ``(n_periods, ...)``, as in the JAX package.  This slice of
-the port runs the ``("attn", "dense")`` pattern only.
+leaves shaped ``(n_periods, ...)``, as in the JAX package.  The port runs
+the ``("attn", "dense")`` and ``("mamba", "none")`` patterns.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
 from .attention import AttentionConfig
+from .mamba import MambaConfig
 from .mlp import MlpConfig
 
 
@@ -31,6 +32,10 @@ class ArchConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     activation: str = "swiglu"
+    # Mamba / SSD
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
     aux_dim: int = 512                 # FedOptima aux head bottleneck dim
     ce_chunk: int = 512                # sequence positions per CE chunk
     attn_chunk: int = 1024             # query-chunk size of sdpa_chunked
@@ -62,6 +67,10 @@ class ArchConfig:
     def mlp_cfg(self) -> MlpConfig:
         return MlpConfig(d_model=self.d_model, d_ff=self.d_ff,
                          activation=self.activation)
+
+    def mamba_cfg(self) -> MambaConfig:
+        return MambaConfig(d_model=self.d_model, d_state=self.ssm_state,
+                           head_dim=self.ssm_head_dim, chunk=self.ssm_chunk)
 
     def scaled(self, **kw) -> "ArchConfig":
         """Reduced copy for smoke tests."""

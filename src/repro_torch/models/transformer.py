@@ -1,5 +1,5 @@
 """Backbone assembly and the FedOptima split API, for the ("attn", "dense")
-decoder pattern.
+and ("mamba", "none") decoder patterns.
 
 The DNN is split at a period boundary ``l_split``.  The device half is
 ``embed + blocks[:l_split]`` plus an auxiliary network (one block of the
@@ -9,9 +9,10 @@ detached activations.
 
 ``remat`` (per period, ``torch.utils.checkpoint`` without reentrancy):
 ``False`` keeps every activation; ``True`` recomputes each period in the
-backward; ``"selective"`` recomputes too but saves the flash-attention
-forward's (out, lse), so the backward never launches the forward kernel
-again.  ``remat`` changes memory, never values.
+backward; ``"selective"`` recomputes too but saves the forward kernels'
+outputs (flash attention's (out, lse), SSD's (y, states)), so the backward
+never launches a forward kernel again.  ``remat`` changes memory, never
+values.
 """
 from __future__ import annotations
 
@@ -25,15 +26,19 @@ from .api import ArchConfig
 from .attention import attention_apply, attention_init
 from .common import (dense_init, embed_init, rmsnorm_apply, rmsnorm_init,
                      tree_map)
+from .mamba import mamba_apply, mamba_init
 from .mlp import mlp_apply, mlp_init
+
+#: (mixer, ffn) blocks the port runs so far.
+BLOCKS = (("attn", "dense"), ("local", "dense"), ("mamba", "none"))
 
 
 def _check_pattern(cfg: ArchConfig) -> None:
-    for mixer, ffn in cfg.pattern:
-        if mixer not in ("attn", "local") or ffn != "dense":
+    for block in cfg.pattern:
+        if block not in BLOCKS:
             raise NotImplementedError(
-                f"{cfg.name}: block ({mixer!r}, {ffn!r}) — this slice of the "
-                "torch port runs attention + dense FFN blocks only")
+                f"{cfg.name}: block {block!r} — the torch port runs "
+                f"{BLOCKS} blocks so far")
 
 
 # ---------------------------------------------------------------------------
@@ -43,10 +48,15 @@ def _check_pattern(cfg: ArchConfig) -> None:
 def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
                 dtype) -> dict:
     dev = gen.device
-    return {"ln1": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
-            "mixer": attention_init(gen, cfg.attn_cfg(mixer), dtype=dtype),
-            "ln2": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype),
-            "ffn": mlp_init(gen, cfg.mlp_cfg(), dtype=dtype)}
+    p = {"ln1": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype)}
+    if mixer == "mamba":
+        p["mixer"] = mamba_init(gen, cfg.mamba_cfg(), dtype=dtype)
+    else:
+        p["mixer"] = attention_init(gen, cfg.attn_cfg(mixer), dtype=dtype)
+    if ffn == "dense":
+        p["ln2"] = rmsnorm_init(cfg.d_model, device=dev, dtype=dtype)
+        p["ffn"] = mlp_init(gen, cfg.mlp_cfg(), dtype=dtype)
+    return p
 
 
 def _stack_init(gen: torch.Generator, cfg: ArchConfig, n_periods: int,
@@ -79,15 +89,22 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
 
 def _apply_block(p: dict, cfg: ArchConfig, mixer: str, ffn: str, h, *,
                  positions, use_kernel: bool = False):
-    h = h + attention_apply(p["mixer"], cfg.attn_cfg(mixer),
-                            rmsnorm_apply(p["ln1"], h), positions=positions,
+    x = rmsnorm_apply(p["ln1"], h)
+    if mixer == "mamba":
+        h = h + mamba_apply(p["mixer"], cfg.mamba_cfg(), x,
                             use_kernel=use_kernel)
-    return h + mlp_apply(p["ffn"], cfg.mlp_cfg(), rmsnorm_apply(p["ln2"], h))
+    else:
+        h = h + attention_apply(p["mixer"], cfg.attn_cfg(mixer), x,
+                                positions=positions, use_kernel=use_kernel)
+    if ffn == "dense":
+        h = h + mlp_apply(p["ffn"], cfg.mlp_cfg(), rmsnorm_apply(p["ln2"], h))
+    return h
 
 
 def _save_kernel_out(ctx, op, *args, **kwargs):
-    """Selective-remat policy: keep the flash-attention forward's outputs
-    (O(S·hd) each, never the S×S scores), recompute everything else."""
+    """Selective-remat policy: keep the forward kernels' outputs (O(S·hd)
+    and O(nc·N·P) each, never an S×S or Q×Q tile), recompute everything
+    else."""
     from repro_torch.kernels.ops import SAVED_OPS
     return CheckpointPolicy.MUST_SAVE if op in SAVED_OPS else \
         CheckpointPolicy.PREFER_RECOMPUTE

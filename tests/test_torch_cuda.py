@@ -1,13 +1,17 @@
 """Card-only tests of the torch port: each CUDA kernel against its plain
-version, and a smoke round with the kernels against the plain path.  This
-file imports no JAX, so it runs on the machine with the card:
+version, and smoke rounds (smollm-135m, mamba2-780m) with the kernels
+against the plain path.  This file imports no JAX, so it runs on the
+machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each test decides inside itself whether a card exists and skips without
 one (the CUDA kernels have no CPU mode).  Tolerances are chip_smoke.py's:
-f32 forward 1e-4, f32 gradients 5e-4 + 1e-3·|ref| (sums over 1024 keys in
-another order), bf16 3e-2.
+flash attention f32 forward 1e-4, f32 gradients 5e-4 + 1e-3·|ref| (sums
+over 1024 keys in another order), bf16 3e-2; SSD 1e-4·scale +
+1e-3·|ref|, the scale of each element's head from ``ref.ssd_scales`` (ddt
+cancels two terms up to |A| = 48 times its size, dA sums terms that
+cancel, and float32 rounds the chunk's log-decay |L| ~ 1e3 to ~1e-4).
 """
 import dataclasses
 
@@ -20,6 +24,7 @@ from repro_torch.core import control_plane as tcp
 from repro_torch.core import fedopt_step as TF
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import ssd as ssd_k
 from repro_torch.launch import train as ttrain
 from repro_torch.models.common import tree_map
 
@@ -61,11 +66,64 @@ def test_cuda_kernels_match_plain(shape, kw, dtype):
                                    rtol=rtol)
 
 
+SSD_CUDA_CASES = [
+    # (B, T, H, P, G, N, chunk), A's most negative value
+    ((2, 1024, 48, 64, 1, 128, 256), -48.0),    # mamba2-780m, device half
+    ((1, 1000, 8, 64, 2, 128, 200), -8.0),      # grouped B/C, ragged tile
+    ((2, 100, 4, 64, 1, 128, 100), -4.0),       # one chunk, T < 256
+    ((2, 64, 8, 16, 1, 16, 8), -8.0),           # the smoke shape
+    ((1, 512, 4, 32, 4, 32, 128), -48.0),       # rep 1
+]
+
+
+def ssd_inputs(shape, a_min, seed=0):
+    """x ~ N(0, 1), dt log-normal around 0.1 (the top of mamba2's dt
+    range), A evenly from -1 down to a_min (mamba2's init has -1 .. -H),
+    B, C ~ N(0, 1/4), dy ~ N(0, 1): float32 on the card.  The chunk's
+    log-decay then reaches |L| ~ 0.1 |a_min| Q, whose float32 rounding
+    (~1e-4 at the main shape) bounds how closely any two chunked forms
+    agree."""
+    B, T, H, P, G, N, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    x, dt = mk(B, T, H, P), 0.1 * torch.exp(0.5 * mk(B, T, H))
+    A = -torch.linspace(1.0, -a_min, H, device="cuda")
+    Bm, Cm, dy = mk(B, T, G, N) * 0.5, mk(B, T, G, N) * 0.5, mk(B, T, H, P)
+    return x, dt, A, Bm, Cm, dy
+
+
 @pytest.mark.cuda
-def test_cuda_round_kernel_matches_plain():
+@pytest.mark.parametrize("shape,a_min", SSD_CUDA_CASES)
+def test_cuda_ssd_kernels_match_plain(shape, a_min):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    cfg = TF.FedStepConfig(arch=treg.smoke_config("smollm-135m"), l_split=1,
+    x, dt, A, Bm, Cm, dy = ssd_inputs(shape, a_min)
+    chunk = shape[-1]
+    y, st = ssd_k.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    y_r, st_r = tref.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    grads = ssd_k.ssd_bwd(x, dt, A, Bm, Cm, st_r, dy, chunk=chunk)
+    grads_r = tref.ssd_bwd(x, dt, A, Bm, Cm, st_r, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    names = ("y", "states", "dx", "ddt", "dA", "dB", "dC")
+    want = dict(zip(names, (y_r, st_r, *grads_r)))
+    scale = tref.ssd_scales(x, dt, A, want)
+    for name, got in zip(names, (y, st, *grads)):
+        assert torch.isfinite(got).all(), name
+        err = (got - want[name]).abs()
+        assert bool((err <= 1e-4 * scale[name]
+                     + 1e-3 * want[name].abs()).all()), \
+            f"{name}: max abs err {float(err.max()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,launches,kernel", [
+    ("smollm-135m", fa.launches, "fa_fwd"),
+    ("mamba2-780m", ssd_k.launches, "ssd_fwd"),
+], ids=["smollm-135m", "mamba2-780m"])
+def test_cuda_round_kernel_matches_plain(arch, launches, kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg = TF.FedStepConfig(arch=treg.smoke_config(arch), l_split=1,
                            n_groups=2, seq_len=64, per_group_batch=4, H=2,
                            omega=2)
     state0 = TF.init_train_state(
@@ -83,9 +141,11 @@ def test_cuda_round_kernel_matches_plain():
         step = TF.make_train_step(dataclasses.replace(cfg, use_kernel=uk))
         state = tree_map(torch.clone, state0)
         fa.reset_launches()
+        ssd_k.reset_launches()
         losses[uk] = []
         for batch in batches:
             state, m = step(state, batch)
             losses[uk] += [float(m["d_loss"]), float(m["s_loss"])]
-    assert fa.launches["fa_fwd"] == 2 * cfg.H * (2 * 1 + 1)
+    # two rounds of H micro-iterations: G device blocks + the server's
+    assert launches[kernel] == 2 * cfg.H * (2 * 1 + 1)
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)

@@ -1,12 +1,14 @@
 """The torch port's model functions against the JAX package's, on the same
 params (converted from the JAX init) and the same numpy inputs, for smoke
-smollm-135m: attention, the MLP, and the two halves' losses with their
-gradients, each with the flash-attention op on and off.  Tolerance: the
+smollm-135m and smoke mamba2-780m: attention, the MLP, the Mamba2 block,
+and the two halves' losses with their gradients, each with the kernel ops
+(flash attention, SSD) on and off.  Tolerance: the
 reference's own gradient tolerance, 1e-4 (``tests/test_kernel_grads.py``
 GTOL); float32 matmuls of XLA and of torch on the CPU differ in their last
 bits.
 """
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -15,19 +17,27 @@ import torch
 
 from repro.configs import registry as jreg
 from repro.models import attention as jattn
+from repro.models import mamba as jmamba
 from repro.models import mlp as jmlp
 from repro.models import transformer as jtfm
 from repro_torch.configs import registry as treg
 from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.kernels import ref as tref
 from repro_torch.models import attention as tattn
+from repro_torch.models import mamba as tmamba
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.common import tree_map
 
 TOL = 1e-4
 ARCH = "smollm-135m"
+MAMBA = "mamba2-780m"
 B, S = 2, 16
+# (arch, use_kernel); the smollm cases keep their ids
+ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
+               pytest.param(ARCH, True, id="True"),
+               pytest.param(MAMBA, False, id="mamba2-False"),
+               pytest.param(MAMBA, True, id="mamba2-True")]
 
 
 def _close(got, want, tol=TOL):
@@ -35,9 +45,9 @@ def _close(got, want, tol=TOL):
         g, np.asarray(w), atol=tol, rtol=tol), got, want)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    cfg = jreg.smoke_config(ARCH)
+@functools.cache
+def _setup(arch):
+    cfg = jreg.smoke_config(arch)
     full = jtfm.init_params(jax.random.PRNGKey(0), cfg)
     aux = jtfm.make_aux_params(jax.random.PRNGKey(1), cfg)
     rng = np.random.default_rng(0)
@@ -49,17 +59,28 @@ def setup():
                 labels=labels, acts=acts)
 
 
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(ARCH)
+
+
 def _leaves_grad(tree):
     return tree_map(lambda x: x.requires_grad_(), tree)
 
 
 def test_smoke_and_full_configs_match_jax():
-    for name in ("full", "smoke"):
-        j = jreg.get(ARCH) if name == "full" else jreg.smoke_config(ARCH)
-        t = treg.get(ARCH) if name == "full" else treg.smoke_config(ARCH)
-        for f in dataclasses.fields(t):
-            assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
-        assert (t.n_periods, t.hd) == (j.n_periods, j.hd)
+    for arch in (ARCH, MAMBA):
+        for name in ("full", "smoke"):
+            j = jreg.get(arch) if name == "full" else jreg.smoke_config(arch)
+            t = treg.get(arch) if name == "full" else treg.smoke_config(arch)
+            for f in dataclasses.fields(t):
+                assert getattr(t, f.name) == getattr(j, f.name), \
+                    (arch, name, f.name)
+            assert (t.n_periods, t.hd) == (j.n_periods, j.hd)
+            if t.ssm_state:
+                assert dataclasses.asdict(t.mamba_cfg()) == \
+                    dataclasses.asdict(j.mamba_cfg())
+                assert t.mamba_cfg().n_heads == j.mamba_cfg().n_heads
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
@@ -88,6 +109,31 @@ def test_sdpa_reference_and_chunked_match_jax():
            jattn.sdpa_chunked(q, k, v, chunk_q=16, **kw))
 
 
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_mamba_apply_matches_jax(use_kernel):
+    """The Mamba2 block, with the SSD op on and off, and its gradients;
+    T = 20 is not a multiple of the smoke chunk 8, so both pad."""
+    st = _setup(MAMBA)
+    cfg = st["cfg"]
+    p = jax.tree.map(lambda x: x[0], st["full"]["blocks"][0]["mixer"])
+    x = np.random.default_rng(4).standard_normal((B, 20, cfg.d_model)) \
+        .astype(np.float32)
+
+    def jloss(p, x):
+        y = jmamba.mamba_apply(p, cfg.mamba_cfg(), x, use_kernel=use_kernel)
+        return jax.numpy.sum(jax.numpy.sin(y)), y
+    (_, want), want_g = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(p, x)
+    tp = _leaves_grad(state_from_numpy(p, "cpu"))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = tmamba.mamba_apply(tp, treg.smoke_config(MAMBA).mamba_cfg(), tx,
+                             use_kernel=use_kernel)
+    torch.sum(torch.sin(got)).backward()
+    _close(got.detach().numpy(), want)
+    _close(state_to_numpy((tree_map(lambda t: t.grad, tp), tx.grad)),
+           want_g)
+
+
 def test_mlp_apply_matches_jax(setup):
     cfg = setup["cfg"]
     p = jax.tree.map(lambda x: x[0], setup["full"]["blocks"][0]["ffn"])
@@ -98,8 +144,9 @@ def test_mlp_apply_matches_jax(setup):
     _close(got.numpy(), want)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_device_train_loss_matches_jax(setup, use_kernel):
+@pytest.mark.parametrize("arch,use_kernel", ARCH_KERNEL)
+def test_device_train_loss_matches_jax(arch, use_kernel):
+    setup = _setup(arch)
     cfg = setup["cfg"]
     dev, _ = jtfm.split_params(setup["full"], cfg, 1)
     tok, lab = setup["tokens"], setup["labels"]
@@ -113,7 +160,7 @@ def test_device_train_loss_matches_jax(setup, use_kernel):
     d = _leaves_grad(state_from_numpy(dev, "cpu"))
     a = _leaves_grad(state_from_numpy(setup["aux"], "cpu"))
     loss, acts = ttfm.device_train_loss(
-        d, a, treg.smoke_config(ARCH), torch.from_numpy(tok).long(),
+        d, a, treg.smoke_config(arch), torch.from_numpy(tok).long(),
         torch.from_numpy(lab).long(), use_kernel=use_kernel)
     loss.backward()
     _close(loss.item(), want_loss)
@@ -121,8 +168,9 @@ def test_device_train_loss_matches_jax(setup, use_kernel):
     _close(state_to_numpy(tree_map(lambda x: x.grad, (d, a))), want_g)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_server_forward_loss_matches_jax(setup, use_kernel):
+@pytest.mark.parametrize("arch,use_kernel", ARCH_KERNEL)
+def test_server_forward_loss_matches_jax(arch, use_kernel):
+    setup = _setup(arch)
     cfg = setup["cfg"]
     _, srv = jtfm.split_params(setup["full"], cfg, 1)
     acts, lab = setup["acts"], setup["labels"]
@@ -130,7 +178,7 @@ def test_server_forward_loss_matches_jax(setup, use_kernel):
         lambda s: jtfm.server_forward_loss(s, cfg, acts, lab,
                                            use_kernel=use_kernel)))(srv)
     s = _leaves_grad(state_from_numpy(srv, "cpu"))
-    loss = ttfm.server_forward_loss(s, treg.smoke_config(ARCH),
+    loss = ttfm.server_forward_loss(s, treg.smoke_config(arch),
                                     torch.from_numpy(acts),
                                     torch.from_numpy(lab).long(),
                                     use_kernel=use_kernel)
@@ -148,13 +196,18 @@ def _counting(monkeypatch, name, calls):
     monkeypatch.setattr(tref, name, counted)
 
 
-@pytest.mark.parametrize("remat,fwd_per_layer",
-                         [(False, 1), (True, 2), ("selective", 1)])
+@pytest.mark.parametrize("arch,remat,fwd_per_layer", [
+    pytest.param(ARCH, False, 1, id="False-1"),
+    pytest.param(ARCH, True, 2, id="True-2"),
+    pytest.param(ARCH, "selective", 1, id="selective-1"),
+    pytest.param(MAMBA, True, 2, id="mamba2-True-2"),
+    pytest.param(MAMBA, "selective", 1, id="mamba2-selective-1")])
 def test_remat_keeps_values_and_selective_saves_the_forward(
-        setup, monkeypatch, remat, fwd_per_layer):
+        setup, monkeypatch, arch, remat, fwd_per_layer):
     """remat changes memory, not values; under "selective" the backward
-    reuses the saved (out, lse) and never runs the forward kernel again."""
-    cfg = treg.smoke_config(ARCH).scaled(n_layers=3)
+    reuses the saved forward outputs ((out, lse), (y, states)) and never
+    runs a forward kernel again."""
+    cfg = treg.smoke_config(arch).scaled(n_layers=3)
     gen = torch.Generator().manual_seed(0)
     params = ttfm.init_params(gen, cfg)
     _, srv = ttfm.split_params(params, cfg, 1)
@@ -169,13 +222,15 @@ def test_remat_keeps_values_and_selective_saves_the_forward(
         return loss.item(), state_to_numpy(tree_map(lambda x: x.grad, s))
 
     want = run(False)
-    calls = {"fa_fwd": 0, "fa_bwd_dq": 0, "fa_bwd_dkv": 0}
+    fwd, *bwd = ("fa_fwd", "fa_bwd_dq", "fa_bwd_dkv") if arch == ARCH else \
+        ("ssd_fwd", "ssd_bwd")
+    calls = dict.fromkeys([fwd, *bwd], 0)
     for name in calls:
         _counting(monkeypatch, name, calls)
     got = run(remat)
     n_layers = cfg.n_layers - 1
-    assert calls == {"fa_fwd": fwd_per_layer * n_layers,
-                     "fa_bwd_dq": n_layers, "fa_bwd_dkv": n_layers}
+    assert calls == {fwd: fwd_per_layer * n_layers,
+                     **dict.fromkeys(bwd, n_layers)}
     _close(got, want, tol=1e-6)
 
 

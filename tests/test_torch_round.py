@@ -7,7 +7,9 @@ every state leaf after every round, at 1e-4 (the reference's GTOL).  The
 JAX step is built on a (1, 1) mesh with Auto axes: the repo's debug mesh
 has Explicit axes under jax 0.9, on which the reference step does not
 build.  Round 2 drops group 1 and round 3 restores it, so retention and
-non-uniform staleness weights run too.
+non-uniform staleness weights run too.  Smoke smollm-135m and smoke
+mamba2-780m both run, each with its kernel op (flash attention, SSD) on
+and off.
 """
 import dataclasses
 
@@ -52,15 +54,16 @@ def _assert_plans_equal(pt, pj):
                                       err_msg=f.name)
 
 
-@pytest.mark.parametrize("use_kernel,opts", [
-    (False, {}), (True, {}),
-    (False, dict(server_accum=True, pipeline_acts=False)),
-], ids=["plain", "kernel", "accum-nopipe"])
-def test_round_matches_jax(use_kernel, opts):
+@pytest.mark.parametrize("arch,use_kernel,opts", [
+    ("smollm-135m", False, {}), ("smollm-135m", True, {}),
+    ("smollm-135m", False, dict(server_accum=True, pipeline_acts=False)),
+    ("mamba2-780m", False, {}), ("mamba2-780m", True, {}),
+], ids=["plain", "kernel", "accum-nopipe", "mamba2-plain", "mamba2-kernel"])
+def test_round_matches_jax(arch, use_kernel, opts):
     kw = dict(l_split=1, n_groups=2, seq_len=16, per_group_batch=4, H=2,
               omega=2, use_kernel=use_kernel, **opts)
-    jcfg = JF.FedStepConfig(arch=jreg.smoke_config("smollm-135m"), **kw)
-    tcfg = TF.FedStepConfig(arch=treg.smoke_config("smollm-135m"), **kw)
+    jcfg = JF.FedStepConfig(arch=jreg.smoke_config(arch), **kw)
+    tcfg = TF.FedStepConfig(arch=treg.smoke_config(arch), **kw)
     jitted, jstate, s_spec = _jax_step(jcfg)
     tstate = state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
     step = TF.make_train_step(tcfg)
@@ -155,9 +158,17 @@ def test_driver_refuses_later_slices(flags):
         ttrain.main(SMOKE_ARGS + ["--rounds", "1"] + flags)
 
 
+def test_driver_runs_mamba2(capsys):
+    out = ttrain.main(SMOKE_ARGS + ["--rounds", "2", "--arch", "mamba2-780m",
+                                    "--use-kernel"])
+    assert len(out["history"]) == 2
+    assert all(np.isfinite(m[k]) for m in out["history"]
+               for k in ("d_loss", "s_loss"))
+
+
 def test_driver_refuses_other_archs():
     with pytest.raises(KeyError):
-        ttrain.main(SMOKE_ARGS + ["--rounds", "1", "--arch", "mamba2-780m"])
+        ttrain.main(SMOKE_ARGS + ["--rounds", "1", "--arch", "gemma2-27b"])
 
 
 def test_scheduler_and_flow_control_match_jax():
