@@ -19,7 +19,9 @@ exits non-zero:
    ragged T, T < Q, grouped B/C, the smoke shape and a large decay.  At the
    main shapes, times (CUDA events, median of 30 after warm-up) beside the
    plain version, one PyTorch call for the same function where there is
-   one (SDPA) and the card's bound.
+   one (SDPA) and the card's bound: the least time with the products as
+   3xTF32 on the tensor cores (``bound_ms``) and on the CUDA cores
+   (``bound_simt_ms``).
 4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
    same with l_split 6): two rounds with the kernels and two with the plain
@@ -45,8 +47,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, TF32 on the
+# tensor cores (dense), HBM3.  A float32-accurate product on the tensor cores
+# takes three TF32 products (3xTF32), so its peak is PEAK_TF32_FLOPS / 3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 TOL = {("float32", "fwd"): (1e-4, 1e-4), ("float32", "bwd"): (5e-4, 1e-3),
        ("bfloat16", "fwd"): (3e-2, 3e-2), ("bfloat16", "bwd"): (3e-2, 3e-2)}
@@ -182,10 +187,21 @@ def _close(torch, name, got, want, atol, rtol, atol_text=None):
     return max_abs
 
 
+def _least_ms(flops, nbytes):
+    """(bound_ms, bound_by, bound_simt_ms): the least time for this work
+    with its float32-accurate products as 3xTF32 on the tensor cores (three
+    TF32 products each), and with them on the CUDA cores; bytes at the HBM
+    rate bound both."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 3 * flops / PEAK_TF32_FLOPS
+    t_simt = max(flops / PEAK_F32_FLOPS, t_bytes)
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", t_simt * 1e3)
+
+
 def _bounds(torch, ref, shape, opts, dtype):
-    """Least time (ms) for each kernel's work at this shape: the larger of
-    its bytes over the HBM rate and its float32 flops over the CUDA-core
-    peak, counting only the (q, k) pairs this mask makes visible."""
+    """Least time (ms) for each kernel's work at this shape (``_least_ms``),
+    counting only the (q, k) pairs this mask makes visible."""
     B, S, Skv, H, Hkv, hd = shape
     vis = int(ref.visible(S, Skv, causal=opts["causal"],
                           window=opts.get("window"), device="cpu").sum())
@@ -200,12 +216,7 @@ def _bounds(torch, ref, shape, opts, dtype):
         "fa_bwd_dkv": (8 * hd * pairs, 2 * q_b + 2 * kv_b + 2 * row_b
                        + 2 * B * Hkv * Skv * hd * 4),
     }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        out[name] = (max(t_ops, t_bytes) * 1e3,
-                     "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    return {name: _least_ms(*w) for name, w in work.items()}
 
 
 def _sdpa_ms(torch, q, k, v, do, opts):
@@ -262,14 +273,15 @@ def phase_kernels(torch, fa, ref) -> dict:
         for name, (kern, plain) in runs.items():
             ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
             lib = sdpa_fwd if name == "fa_fwd" else sdpa_bwd
-            bound_ms, bound_by = bounds[name]
+            bound_ms, bound_by, simt_ms = bounds[name]
             print(f"[kernels]   {name:10s} {ms:.4f} ms | plain {plain_ms:.4f}"
                   f" ms | SDPA {'fwd' if name == 'fa_fwd' else 'bwd'} "
-                  f"{lib:.4f} ms | bound {bound_ms:.4f} ms ({bound_by})",
-                  flush=True)
+                  f"{lib:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"3xTF32) | CUDA-core bound {simt_ms:.4f} ms", flush=True)
             rec = dict(shape=list(shape), max_abs_err=err[name], ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib)
+                       bound_by=bound_by, bound_simt_ms=simt_ms,
+                       library_ms=lib)
             record.setdefault(name, {})[case] = rec
     return record
 
@@ -308,10 +320,10 @@ def _ssd_inputs(torch, shape, a_min, seed, large_decay):
 
 
 def _ssd_bounds(shape, Q):
-    """Least time (ms) for each SSD kernel at this shape: the larger of its
-    bytes (each input read once, each output written once) over the HBM
-    rate and its float32 flops (2 per multiply-add) over the CUDA-core
-    peak, counting only the Q (Q + 1) / 2 pairs s <= t of each chunk, and
+    """Least time (ms) for each SSD kernel at this shape (``_least_ms``):
+    its bytes (each input read once, each output written once) and its
+    flops (2 per multiply-add), counting only the Q (Q + 1) / 2 pairs
+    s <= t of each chunk, and
     the score product C·Bᵀ once per (batch, group, chunk): every head of a
     group shares it."""
     B, T, H, P, G, N, _ = shape
@@ -328,12 +340,8 @@ def _ssd_bounds(shape, Q):
                                        + 4 * Q * N * P),
                     3 * x_b + 2 * dt_b + 2 * H * 4 + 4 * bc_b + st_b),
     }
-    out = {}
-    for name, (macs, nbytes) in work.items():
-        t_ops, t_bytes = 2 * macs / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        out[name] = (max(t_ops, t_bytes) * 1e3,
-                     "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    return {name: _least_ms(2 * macs, nbytes)
+            for name, (macs, nbytes) in work.items()}
 
 
 def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
@@ -367,13 +375,15 @@ def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
         bounds = _ssd_bounds(shape, Q)
         for name, (kern, plain) in runs.items():
             ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
-            bound_ms, bound_by = bounds[name]
+            bound_ms, bound_by, simt_ms = bounds[name]
             print(f"[kernels]   {name:10s} {ms:.4f} ms | plain {plain_ms:.4f}"
                   f" ms | library: none | bound {bound_ms:.4f} ms "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}, 3xTF32) | CUDA-core bound {simt_ms:.4f} ms",
+                  flush=True)
             rec = dict(shape=list(shape), max_abs_err=err[name], ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=None)
+                       bound_by=bound_by, bound_simt_ms=simt_ms,
+                       library_ms=None)
             record.setdefault(name, {})[case] = rec
     return record
 
@@ -559,6 +569,7 @@ def main() -> int:
                         "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
+                        "bound_simt_ms": rec["bound_simt_ms"],
                         "library_ms": rec["library_ms"],
                         "shape": rec["shape"],
                         "device_shape": record[name]["main-dev"]})

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fa_fwd.cu", "fa_bwd_dq.cu", "fa_bwd_dkv.cu", "ssd_fwd.cu",
            "ssd_bwd.cu")
-HEADERS = ("fa_common.cuh", "ssd_common.cuh")
+HEADERS = ("fa_common.cuh", "fa_mma.cuh", "ssd_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")

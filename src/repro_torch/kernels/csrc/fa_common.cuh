@@ -1,6 +1,8 @@
 // Shared pieces of the three flash-attention kernels (fa_fwd.cu,
 // fa_bwd_dq.cu, fa_bwd_dkv.cu): element conversion, the mask of one
-// (query, key) pair, the whole-tile skip predicate and the parameter block.
+// (query, key) pair, the whole-tile skip predicate and the parameter block;
+// then the SIMT row helpers of fa_bwd_dq.cu (the tensor-core pieces of the
+// other two are in fa_mma.cuh).
 //
 // Layout everywhere: q, o, do (B, H, S, HD) and k, v (B, Hkv, Skv, HD),
 // contiguous; lse and delta (B, H, S) float32.  Arithmetic is float32 for
@@ -25,12 +27,6 @@ enum FaDtype { FA_F32 = 0, FA_BF16 = 1 };
 __device__ __forceinline__ float fa_to_float(float x) { return x; }
 __device__ __forceinline__ float fa_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-template <typename T> __device__ __forceinline__ T fa_from_float(float x);
-template <> __device__ __forceinline__ float fa_from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 fa_from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // Whether query qpos may attend to key kpos (padding, causal, window).
 __device__ __forceinline__ bool fa_visible(const FaParams& p, int qpos, int kpos) {
   if (qpos >= p.S || kpos >= p.Skv) return false;
@@ -54,8 +50,8 @@ __device__ __forceinline__ float fa_logit(const FaParams& p, float dot) {
   return s;
 }
 
-// Four consecutive lanes share one row (a query row, or a key row in the
-// dk/dv kernel): lane `sub` of the four owns the HD/4 dims
+// The SIMT pieces of the dq kernel.  Four consecutive lanes share one
+// query row: lane `sub` of the four owns the HD/4 dims
 // {16c + 4sub + i : c < HD/16, i < 4}, so the four lanes' float4 reads of
 // one shared-memory row hit distinct banks.  A dot product over HD is each
 // lane's partial sum, completed by two xor-shuffles; the four lanes end with
@@ -115,10 +111,4 @@ __device__ __forceinline__ void fa_stage(float* dst, const T* src, int r0, int n
     const int r = idx / HD;
     dst[idx] = (r0 + r < n_rows) ? fa_to_float(src[(size_t)(r0 + r) * HD + idx % HD]) : 0.f;
   }
-}
-
-// Stage R per-row floats (lse or delta) starting at row r0; 0 past n_rows.
-template <int R, int NT>
-__device__ __forceinline__ void fa_stage_rows(float* dst, const float* src, int r0, int n_rows) {
-  for (int r = threadIdx.x; r < R; r += NT) dst[r] = (r0 + r < n_rows) ? src[r0 + r] : 0.f;
 }

@@ -1,0 +1,152 @@
+"""The 3xTF32 split of the tensor-core flash-attention kernels, emulated on
+the CPU, and the bound that ``chip_smoke.py`` prices it at.
+
+``fa_fwd.cu`` and ``fa_bwd_dkv.cu`` run every product on the tensor cores as
+TF32: an f32 operand x becomes big = cvt.rna.tf32(x) and small =
+cvt.rna.tf32(x - big), and a·b is taken as big·small + small·big + big·big
+with f32 sums.  Here cvt.rna is emulated by integer arithmetic on the f32
+bits, and a product of two TF32 values is exact in f32, as on the tensor
+core.  Attention out, lse, dk and dv computed so must meet ``chip_smoke.py``'s
+float32 tolerances against a float64 evaluation; single-pass TF32 (big·big
+alone) must miss them.  That pair of facts is why those tolerances hold for
+the kernels unchanged: the route keeps float32 accuracy, the tolerance was
+not widened to fit it.  (The tensor core's own accumulation does not round
+to nearest; the kernels keep its runs short, and this emulation sums in f32
+with rounding.)
+"""
+import importlib.util
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref as tref
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CS = _chip_smoke()
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on finite float32 values: the magnitude rounded to
+    10 mantissa bits, to nearest with ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    big = tf32(x)
+    return big, tf32(x - big)
+
+
+def mm_tf32(a, b):
+    """Single-pass TF32: each operand rounded once; exact products, f32
+    sums."""
+    return tf32(a) @ tf32(b)
+
+
+def mm_3xtf32(a, b):
+    """Error-compensated 3xTF32: big·small + small·big + big·big, f32 sums
+    (the dropped small·small is ~2^-22 of each product)."""
+    ab, as_ = split(a)
+    bb, bs = split(b)
+    return ab @ bs + as_ @ bb + ab @ bb
+
+
+def attention(q, k, v, do, lse_in, delta, mm):
+    """Causal attention out and lse, and dk, dv from the given lse and
+    delta, with every product through ``mm`` (the kernels' algebra: z =
+    scale q kᵀ, p = exp(z - lse), dS = p (dO vᵀ - delta))."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    S = q.shape[-2]
+    mask = tref.visible(S, S, causal=True, window=None, device="cpu")
+    z = (mm(q, k.transpose(-1, -2)) * scale).masked_fill(~mask, -math.inf)
+    m = z.amax(dim=-1, keepdim=True)
+    p = torch.exp(z - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = mm(p, v) / l
+    lse = m[..., 0] + torch.log(l[..., 0])
+    p = torch.exp(z - lse_in[..., None])
+    ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None])
+    dv = mm(p.transpose(-1, -2), do)
+    dk = mm(ds.transpose(-1, -2), q) * scale
+    return {"out": out, "lse": lse, "dk": dk, "dv": dv}
+
+
+def _misses(name, got, want):
+    """Elements outside chip_smoke.py's float32 tolerance for ``name``."""
+    atol, rtol = CS.TOL[("float32", "fwd" if name in ("out", "lse")
+                         else "bwd")]
+    err = (got.double() - want).abs()
+    return int((err > atol + rtol * want.abs()).sum())
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_3xtf32_meets_float32_tolerance_and_single_pass_misses(hd):
+    B, H, S = 1, 4, 512
+    rng = np.random.default_rng(hd)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, H, S, hd))
+                                    .astype(np.float32)) for _ in range(4))
+    want = attention(*(t.double() for t in (q, k, v, do)),
+                     torch.zeros(B, H, S, dtype=torch.float64),
+                     torch.zeros(B, H, S, dtype=torch.float64),
+                     lambda a, b: a @ b)
+    lse64 = want["lse"]
+    delta64 = (do.double() * want["out"]).sum(-1)
+    want = attention(*(t.double() for t in (q, k, v, do)), lse64, delta64,
+                     lambda a, b: a @ b)
+    lse, delta = lse64.float(), delta64.float()
+    three = attention(q, k, v, do, lse, delta, mm_3xtf32)
+    one = attention(q, k, v, do, lse, delta, mm_tf32)
+    for name in ("out", "lse", "dk", "dv"):
+        assert _misses(name, three[name], want[name]) == 0, name
+    assert any(_misses(n, one[n], want[n]) for n in one), \
+        "single-pass TF32 met the float32 tolerance"
+
+
+def test_tf32_rounds_to_nearest_ties_away_from_zero():
+    ulp = 2.0 ** -10                      # TF32's spacing in [1, 2)
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 3 * ulp / 2, 3.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0, -0.0])
+    got = tf32(x)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert torch.all((got.view(torch.int32) & 0x1FFF) == 0)
+
+
+def test_split_recovers_float32_to_22_bits():
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(10_000)
+                         .astype(np.float32) * 100)
+    big, small = split(x)
+    rel = ((big.double() + small.double() - x.double()).abs()
+           / x.double().abs())
+    assert float(rel.max()) <= 2.0 ** -21
+    assert float(((big.double() - x.double()).abs() / x.double().abs())
+                 .max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("name,bound_ms,simt_ms", [
+    ("fa_fwd", 0.0586, 0.1444),
+    ("fa_bwd_dkv", 0.1173, 0.2887),
+])
+def test_bounds_price_products_as_3xtf32(name, bound_ms, simt_ms):
+    """At the server half's shape (B=8, S=1024, 9:3 heads, hd 64, causal:
+    37,785,600 visible pairs) both kernels stay bound by operations."""
+    shape, opts = next((s, o) for c, s, o, _ in CS.CASES if c == "main-srv")
+    got_ms, by, got_simt = CS._bounds(torch, tref, shape, opts,
+                                      torch.float32)[name]
+    assert by == "operations"
+    assert got_ms == pytest.approx(bound_ms, rel=0.01)
+    assert got_simt == pytest.approx(simt_ms, rel=0.01)
