@@ -14,14 +14,15 @@ exits non-zero:
 3. kernels — each kernel against its plain PyTorch version on the card.
    Flash attention at smollm-135m's attention shape (B=2 and B=8, S=1024,
    9:3 heads, hd 64, causal, f32) and at ragged S, S != Skv, window,
-   soft-cap, MHA, MQA, bf16 and the other head dims; SSD at mamba2-780m's
-   shape (B=2 and B=8, T=1024, 48 heads, P 64, G 1, N 128, Q 256, f32),
-   ragged T, T < Q, grouped B/C, the smoke shape and a large decay.  At the
-   main shapes, times (CUDA events, median of 30 after warm-up) beside the
-   plain version, one PyTorch call for the same function where there is
-   one (SDPA) and the card's bound: the least time with the products as
-   3xTF32 on the tensor cores (``bound_ms``) and on the CUDA cores
-   (``bound_simt_ms``).
+   soft-cap, MHA, MQA, the other head dims, and bf16 at each head dim;
+   SSD at mamba2-780m's shape (B=2 and B=8, T=1024, 48 heads, P 64, G 1,
+   N 128, Q 256, f32), ragged T, T < Q, grouped B/C, the smoke shape and a
+   large decay.  At the main shapes, times (CUDA events, median of 30
+   after warm-up) beside the plain version, one PyTorch call for the same
+   function where there is one (SDPA) and the card's bound: the least time
+   with the products as 3xTF32 on the tensor cores (``bound_ms``) and on
+   the CUDA cores (``bound_simt_ms``); and the port's whole attention
+   backward (delta, dq, dk/dv) beside SDPA's backward.
 4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
    same with l_split 6): two rounds with the kernels and two with the plain
@@ -146,6 +147,11 @@ CASES = [
     ("hd32", (2, 256, 256, 8, 2, 32), dict(causal=True, logit_cap=15.0),
      "float32"),
     ("hd128", (1, 300, 300, 4, 2, 128), dict(causal=True), "float32"),
+    ("bf16-hd16", (2, 300, 300, 4, 4, 16), dict(causal=True, window=32),
+     "bfloat16"),
+    ("bf16-hd32", (2, 256, 256, 8, 2, 32), dict(causal=True, logit_cap=15.0),
+     "bfloat16"),
+    ("bf16-hd128", (1, 300, 300, 4, 2, 128), dict(causal=True), "bfloat16"),
 ]
 
 
@@ -270,6 +276,14 @@ def phase_kernels(torch, fa, ref) -> dict:
                                lambda: ref.fa_bwd_dkv(*bwd_in, **opts))}
         bounds = _bounds(torch, ref, shape, opts, dtype)
         sdpa_fwd, sdpa_bwd = _sdpa_ms(torch, q, k, v, do, opts)
+
+        def backward():  # as ops._FlashAttention.backward runs it
+            d = torch.sum(do.float() * out.float(), dim=-1)
+            fa.fa_bwd_dq(q, k, v, do, lse, d, **opts)
+            fa.fa_bwd_dkv(q, k, v, do, lse, d, **opts)
+        print(f"[kernels]   backward pair (delta, fa_bwd_dq, fa_bwd_dkv) "
+              f"{_median_ms(torch, backward):.4f} ms | SDPA bwd "
+              f"{sdpa_bwd:.4f} ms", flush=True)
         for name, (kern, plain) in runs.items():
             ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
             lib = sdpa_fwd if name == "fa_fwd" else sdpa_bwd

@@ -1,5 +1,5 @@
-// Tensor-core pieces of the flash-attention forward and dk/dv kernels
-// (fa_fwd.cu, fa_bwd_dkv.cu): the error-compensated 3xTF32 product on
+// Tensor-core pieces of the three flash-attention kernels (fa_fwd.cu,
+// fa_bwd_dq.cu, fa_bwd_dkv.cu): the error-compensated 3xTF32 product on
 // mma.sync.m16n8k8, and cp.async staging of row tiles into padded shared
 // memory.
 //
@@ -18,9 +18,10 @@
 //   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 // A product's k order is free as long as A and B agree on it.  Feeding an
 // accumulator tile straight back as the A operand of the next product
-// (P·V, Pᵀ·dO, dSᵀ·Q) therefore needs no shuffle: logical column t is taken
-// as key 2t and column t + 4 as key 2t + 1, so a = (c0, c2, c1, c3), and the
-// B operand reads rows 2t and 2t + 1 of its tile (fa_frag_b_rows).
+// (P·V, dS·K, Pᵀ·dO, dSᵀ·Q) therefore needs no shuffle: logical column t
+// is taken as key 2t and column t + 4 as key 2t + 1, so a = (c0, c2, c1,
+// c3), and the B operand reads rows 2t and 2t + 1 of its tile
+// (fa_frag_b_rows).
 //
 // Shared-memory rows are padded by 16 bytes (FaPad: 4 floats or 8 bf16), a
 // row stride of 4 words mod 32 for every head dim here: the A/B reads

@@ -37,6 +37,10 @@ CUDA_CASES = [
     ((1, 200, 300, 4, 1, 16), dict(causal=False), torch.float32),
     ((1, 130, 130, 2, 2, 128), dict(causal=True), torch.float32),
     ((2, 1024, 1024, 9, 3, 64), dict(causal=True), torch.bfloat16),
+    ((2, 300, 300, 4, 4, 16), dict(causal=True, window=32), torch.bfloat16),
+    ((2, 256, 256, 8, 2, 32), dict(causal=True, logit_cap=15.0),
+     torch.bfloat16),
+    ((1, 300, 300, 4, 2, 128), dict(causal=True), torch.bfloat16),
 ]
 
 

@@ -1,14 +1,14 @@
 """The 3xTF32 split of the tensor-core flash-attention kernels, emulated on
 the CPU, and the bound that ``chip_smoke.py`` prices it at.
 
-``fa_fwd.cu`` and ``fa_bwd_dkv.cu`` run every product on the tensor cores as
-TF32: an f32 operand x becomes big = cvt.rna.tf32(x) and small =
-cvt.rna.tf32(x - big), and a·b is taken as big·small + small·big + big·big
-with f32 sums.  Here cvt.rna is emulated by integer arithmetic on the f32
-bits, and a product of two TF32 values is exact in f32, as on the tensor
-core.  Attention out, lse, dk and dv computed so must meet ``chip_smoke.py``'s
-float32 tolerances against a float64 evaluation; single-pass TF32 (big·big
-alone) must miss them.  That pair of facts is why those tolerances hold for
+``fa_fwd.cu``, ``fa_bwd_dq.cu`` and ``fa_bwd_dkv.cu`` run every product on
+the tensor cores as TF32: an f32 operand x becomes big = cvt.rna.tf32(x)
+and small = cvt.rna.tf32(x - big), and a·b is taken as big·small +
+small·big + big·big with f32 sums.  Here cvt.rna is emulated by integer
+arithmetic on the f32 bits, and a product of two TF32 values is exact in
+f32, as on the tensor core.  Attention out, lse, dq, dk and dv computed so
+must meet ``chip_smoke.py``'s float32 tolerances against a float64
+evaluation; single-pass TF32 (big·big alone) must miss them.  That pair of facts is why those tolerances hold for
 the kernels unchanged: the route keeps float32 accuracy, the tolerance was
 not widened to fit it.  (The tensor core's own accumulation does not round
 to nearest; the kernels keep its runs short, and this emulation sums in f32
@@ -65,9 +65,10 @@ def mm_3xtf32(a, b):
 
 
 def attention(q, k, v, do, lse_in, delta, mm):
-    """Causal attention out and lse, and dk, dv from the given lse and
+    """Causal attention out and lse, and dq, dk, dv from the given lse and
     delta, with every product through ``mm`` (the kernels' algebra: z =
-    scale q kᵀ, p = exp(z - lse), dS = p (dO vᵀ - delta))."""
+    scale q kᵀ, p = exp(z - lse), dS = p (dO vᵀ - delta), dq = scale dS k,
+    dk = scale dSᵀ q, dv = pᵀ dO)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     S = q.shape[-2]
     mask = tref.visible(S, S, causal=True, window=None, device="cpu")
@@ -79,9 +80,10 @@ def attention(q, k, v, do, lse_in, delta, mm):
     lse = m[..., 0] + torch.log(l[..., 0])
     p = torch.exp(z - lse_in[..., None])
     ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None])
+    dq = mm(ds, k) * scale
     dv = mm(p.transpose(-1, -2), do)
     dk = mm(ds.transpose(-1, -2), q) * scale
-    return {"out": out, "lse": lse, "dk": dk, "dv": dv}
+    return {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
 
 
 def _misses(name, got, want):
@@ -109,10 +111,12 @@ def test_3xtf32_meets_float32_tolerance_and_single_pass_misses(hd):
     lse, delta = lse64.float(), delta64.float()
     three = attention(q, k, v, do, lse, delta, mm_3xtf32)
     one = attention(q, k, v, do, lse, delta, mm_tf32)
-    for name in ("out", "lse", "dk", "dv"):
+    for name in ("out", "lse", "dq", "dk", "dv"):
         assert _misses(name, three[name], want[name]) == 0, name
     assert any(_misses(n, one[n], want[n]) for n in one), \
         "single-pass TF32 met the float32 tolerance"
+    assert _misses("dq", one["dq"], want["dq"]), \
+        "single-pass TF32 met the float32 tolerance on dq"
 
 
 def test_tf32_rounds_to_nearest_ties_away_from_zero():
@@ -139,11 +143,12 @@ def test_split_recovers_float32_to_22_bits():
 
 @pytest.mark.parametrize("name,bound_ms,simt_ms", [
     ("fa_fwd", 0.0586, 0.1444),
+    ("fa_bwd_dq", 0.0879, 0.2166),
     ("fa_bwd_dkv", 0.1173, 0.2887),
 ])
 def test_bounds_price_products_as_3xtf32(name, bound_ms, simt_ms):
     """At the server half's shape (B=8, S=1024, 9:3 heads, hd 64, causal:
-    37,785,600 visible pairs) both kernels stay bound by operations."""
+    37,785,600 visible pairs) the three kernels stay bound by operations."""
     shape, opts = next((s, o) for c, s, o, _ in CS.CASES if c == "main-srv")
     got_ms, by, got_simt = CS._bounds(torch, tref, shape, opts,
                                       torch.float32)[name]
