@@ -17,12 +17,14 @@ exits non-zero:
    soft-cap, MHA, MQA, the other head dims, and bf16 at each head dim;
    SSD at mamba2-780m's shape (B=2 and B=8, T=1024, 48 heads, P 64, G 1,
    N 128, Q 256, f32), ragged T, T < Q, grouped B/C, the smoke shape and a
-   large decay.  At the main shapes, times (CUDA events, median of 30
-   after warm-up) beside the plain version, one PyTorch call for the same
-   function where there is one (SDPA) and the card's bound: the least time
-   with the products as 3xTF32 on the tensor cores (``bound_ms``) and on
-   the CUDA cores (``bound_simt_ms``); and the port's whole attention
-   backward (delta, dq, dk/dv) beside SDPA's backward.
+   large decay; at B=8 two ``ssd_bwd`` calls on the same inputs must be
+   bit-identical (its sums run in a fixed order).  At the main shapes,
+   times (CUDA events, median of 30 after warm-up) beside the plain
+   version, one PyTorch call for the same function where there is one
+   (SDPA) and the card's bound: the least time with the products as 3xTF32
+   on the tensor cores (``bound_ms``) and on the CUDA cores
+   (``bound_simt_ms``); and the port's whole attention backward (delta,
+   dq, dk/dv) beside SDPA's backward.
 4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
    same with l_split 6): two rounds with the kernels and two with the plain
@@ -380,6 +382,14 @@ def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
                for n, got in zip(names, (y, st, *grads))}
         err = {"ssd_fwd": max(err[n] for n in names[:2]),
                "ssd_bwd": max(err[n] for n in names[2:])}
+        if case == "main-srv":  # fixed-order sums: bit-identical calls
+            again = ssd_k.ssd_bwd(*bwd_in, chunk=Q)
+            same = [bool(torch.equal(a, b)) for a, b in zip(grads, again)]
+            print(f"[kernels]   ssd_bwd twice: bit-identical "
+                  f"{dict(zip(names[2:], same))}", flush=True)
+            if not all(same):
+                raise AssertionError("ssd_bwd: two calls on the same inputs "
+                                     "differ")
         if not case.startswith("main"):
             continue
         runs = {"ssd_fwd": (lambda: ssd_k.ssd_fwd(*args, chunk=Q),

@@ -1,7 +1,7 @@
 // Tensor-core pieces of the three flash-attention kernels (fa_fwd.cu,
-// fa_bwd_dq.cu, fa_bwd_dkv.cu): the error-compensated 3xTF32 product on
-// mma.sync.m16n8k8, and cp.async staging of row tiles into padded shared
-// memory.
+// fa_bwd_dq.cu, fa_bwd_dkv.cu) and the SSD backward (ssd_bwd.cu): the
+// error-compensated 3xTF32 product on mma.sync.m16n8k8, and cp.async
+// staging of row tiles into padded shared memory.
 //
 // 3xTF32.  An f32 operand x is split into big = cvt.rna.tf32(x) and
 // small = cvt.rna.tf32(x - big); the product a·b is taken as
@@ -130,6 +130,35 @@ __device__ __forceinline__ void fa_frag_b_rows(const T* tile, int g, int t, uint
   const T* r = tile + 2 * t * LD + g;
   fa_split<kSmall>(fa_to_float(r[0]), big[0], small[0]);
   fa_split<kSmall>(fa_to_float(r[LD]), big[1], small[1]);
+}
+
+// A fragment of rows [0, 16) of a row-major tile in the permuted k order:
+// columns 2t and 2t + 1, to pair with fa_frag_b_rows on the B side.
+template <bool kSmall, int LD, typename T>
+__device__ __forceinline__ void fa_frag_a_pairs(const T* tile, int g, int t, uint32_t (&big)[4],
+                                                uint32_t (&small)[4]) {
+  const T* r = tile + g * LD + 2 * t;
+  fa_split<kSmall>(fa_to_float(r[0]), big[0], small[0]);
+  fa_split<kSmall>(fa_to_float(r[8 * LD]), big[1], small[1]);
+  fa_split<kSmall>(fa_to_float(r[1]), big[2], small[2]);
+  fa_split<kSmall>(fa_to_float(r[8 * LD + 1]), big[3], small[3]);
+}
+
+// A fragment of the transpose of a row-major f32 tile (A row m = tile
+// column m, k down the tile's rows) in the permuted k order, to pair with
+// fa_frag_b_rows: tile rows 2t and 2t + 1, scaled by s0 and s1, columns g
+// and g + 8.  With a row stride of 4 words mod 16 (FaPad) the reads
+// (row 2t, column g) of a warp hit 32 distinct banks; rows t and t + 4, as
+// the unpermuted order would read, would conflict two ways.
+template <int LD>
+__device__ __forceinline__ void fa_frag_at_rows(const float* tile, int g, int t, float s0,
+                                                float s1, uint32_t (&big)[4],
+                                                uint32_t (&small)[4]) {
+  const float* r = tile + 2 * t * LD + g;
+  fa_split<true>(r[0] * s0, big[0], small[0]);
+  fa_split<true>(r[8] * s0, big[1], small[1]);
+  fa_split<true>(r[LD] * s1, big[2], small[2]);
+  fa_split<true>(r[LD + 8] * s1, big[3], small[3]);
 }
 
 // An accumulator tile as the A operand of the next product (see above).

@@ -1,4 +1,5 @@
-// Mamba2 SSD reverse-scan backward for Hopper (sm_90a), float32.
+// Mamba2 SSD reverse-scan backward for Hopper (sm_90a): 3xTF32 tensor-core
+// products at float32 accuracy.
 //
 // Replaces: src/repro/kernels/ssd.py `_ssd_bwd_kernel` (the Pallas TPU kernel
 // launched by `ssd_bwd_chunked_pallas`).  Same function: walking the chunks
@@ -7,8 +8,9 @@
 // (x, dt, A, B, C) and the forward's entry state h_prev, and emits dx, ddt,
 // dB and dC per head and dA per (batch, head).  The wrapper sums dA over the
 // batch and dB/dC over each group's heads (ssd.py:268-271).  With
-// M = (C B^T) . decay, xb = dt x, L = cumsum(dt A) and w_s = e^{L_Q - L_s}:
-//   dM    = dy xb^T,  dxb = M^T dy + w . (B dh),  ds = dM . decay
+// S = C B^T, D = e^{L_t - L_s} [s <= t], xb = dt x, L = cumsum(dt A) and
+// w_s = e^{L_Q - L_s}:
+//   dM    = dy xb^T,  dxb = (S.D)^T dy + w . (B dh),  ds = dM . D
 //   dC    = ds B + e^{L} (dy h_prev^T),  dB = ds^T C + w . (xb dh^T)
 //   dL_t  = rowsum_t(ds . S) - colsum_t(ds . S) + e^{L_t} C_t . (h_prev dy_t)
 //           - w_t (B_t . (xb_t dh^T)),
@@ -18,73 +20,204 @@
 //   dh   <- (C e^{L})^T dy + e^{L_Q} dh.
 // The decay is computed only where s <= t.
 //
-// What bounds it on the H100: operations, as for the forward: per chunk
-// 3N + 2P multiply-adds for each pair s <= t and 4 Q N P for the
-// state terms, on float32 CUDA cores (TF32 off).
+// What bounds it on the H100: operations.  Per chunk 3N + 2P multiply-adds
+// for each pair s <= t and 4 Q N P for the state terms, as 3xTF32 on the
+// tensor cores (chip_smoke.py `_ssd_bounds`).  This design does about 1.6x
+// that per (batch, head, chunk): S and dM in both passes, over whole 16 x 32
+// warp tiles on the diagonal, and S once per head.
 //
-// Design: one CTA of 256 threads per (head, batch) walks the chunks in
-// reverse with dh and h_prev (N x P each) in shared memory: the TPU kernel's
-// VMEM carry and reversed chunk grid.  The (Q, Q) tiles are walked in
-// 64 x 64 sub-tiles twice, since what one (t, s) tile gives is summed over t
-// for the s rows (dx, dB, column sums of dL) and over s for the t rows (dC,
-// row sums): pass B holds an s-block and runs over the t-blocks >= it,
-// pass A holds a t-block and runs over the s-blocks <= it; each recomputes
-// the scores, which costs a second C B^T (a later redesign point, with the
-// per-head recompute of C B^T when G = 1 and tensor cores).  Every sum
-// over threads is a shuffle or a fixed-order tree: the result does not
-// depend on scheduling.  Shared memory is about 200 KiB at the main shape.
+// Design (fa_mma.cuh has the product, the split and the fragment layouts):
+// - Every product is mma.sync.m16n8k8 TF32 with the 3xTF32 split (big·small
+//   + small·big + big·big, f32 accumulation).  Every operand is an f32
+//   value, so every product takes all three.
+// - One CTA of 8 warps per (head, batch) walks the chunks in reverse with dh
+//   (N x P) in shared memory: the TPU kernel's VMEM carry and reversed
+//   chunk grid.  Within a chunk, pass B then pass A.
+// - Pass B (as fa_bwd_dkv.cu holds keys) holds a block of 128 s-rows of B
+//   and x; warp w owns rows 16w..16w+15 and all columns.  It streams the
+//   t-rows >= the block in steps of 32 (C, dy), and per step takes
+//   S^T = B_s C_t^T (k over N) and dM^T = x_s dy_t^T (k over P) into
+//   accumulators; then, on the fragments, ds^T = dM^T dt_s D^T and
+//   (S.D)^T, with the column part of dL (sum over t of ds . S) as a row sum
+//   of the fragment; then dB_s += ds^T C_t and dxb_s += (S.D)^T dy_t with
+//   both accumulators fed straight back as A operands (t permuted within
+//   each 8-step, fa_frag_b_rows on the B side).  A step whose 32 columns
+//   all lie before a warp's rows is skipped by that warp.  Then the state
+//   terms of its rows: dBw = xb_s dh^T (k over P), dB += w dBw, dw =
+//   <dBw, B>; dxb += w (B_s dh) (k over N, B_s read in the permuted order,
+//   fa_frag_a_pairs).
+// - Pass A (as fa_bwd_dq.cu holds queries) holds 128 t-rows of C and dy;
+//   warp w owns 16 of them.  It streams the s-rows <= the block in steps of
+//   32 (B, x): S = C_t B_s^T, dM = dy_t x_s^T, ds = dM dt_s D and the row
+//   part of dL, then dC_t += ds B_s with ds as the A operand.  Then the
+//   inter-chunk terms: dyh = dy_t h_prev^T (k over P), dC += e^{L} dyh, ip
+//   = <dyh, C>; and dh += (C_t e^{L})^T dy_t over the block: warp w owns dh
+//   rows n = 16w..16w+15, k runs over t, and the A operand is C read
+//   transposed (fa_frag_at_rows: tile rows 2t and 2t + 1, columns g and
+//   g + 8, scaled by e^{L_t}).
+// - Staging.  The held block moves in by cp.async (all of a thread's loads
+//   in flight at once) under the first step's load.  A streamed step is
+//   loaded, split once into planes of big and small TF32 parts, and read as
+//   such by all eight warps, so its B fragments take no split work; the
+//   next step's rows are prefetched into L1 while this one is multiplied.
+//   h_prev is read by pass A's tail only, and goes over the step planes
+//   there.
+// - Shared memory: rows padded by 16 bytes (FaPad), pitches 132 (N-wide)
+//   and 68 (P-wide) words, 4 mod 16: the row reads (g, t) of fa_frag_a and
+//   fa_frag_bt, the permuted row pairs (2t, g) of fa_frag_b_rows (here on
+//   the split planes too) and the transposed reads (2t, g) of
+//   fa_frag_at_rows hit 32 distinct banks.  The one read with two-way
+//   conflicts is fa_frag_a_pairs' (g, 2t) on B_s in dxb += w (B_s dh), four
+//   loads per 8-step against sixteen conflict-free ones of dh.  Widths are
+//   padded to N = 128 and P = 64 with zero columns, and rows past Q are
+//   zero, so every N <= 128, P <= 64 and Q <= 2195 (shared memory) runs the
+//   same code.  At Q = 256: dh 128 x 68, the held block 128 x (132 + 68),
+//   the step's planes 2 x 32 x (132 + 68), 5 Q + 32 floats: 193,664 bytes,
+//   one CTA per SM.
+// - The decay is e^{L_t - L_s} on the MUFU unit (__expf): its error is far
+//   below that of L_t - L_s itself, rounded in float32 at |L| ~ 1e3.
+// - Each step's products go to fresh accumulators and join the running sums
+//   (dB, dxb, dC, dh) by a rounded f32 add: the tensor core's own
+//   accumulation does not round to nearest.  Every sum over threads is a
+//   quad shuffle, a per-lane add or a fixed-order tree; no atomics, so the
+//   result does not depend on scheduling.
+// - ptxas (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3): 255 registers,
+//   48 bytes of stack, 56 bytes of spill stores and 124 of spill loads.
+//   Fewer registers would free none of the SM for a second CTA (shared
+//   memory holds it to one), so the kernel takes all 255.
+#include "fa_mma.cuh"
 #include "ssd_common.cuh"
 
 namespace {
 
-__host__ __device__ inline size_t bwd_smem_floats(int N, int P, int Q) {
-  return 2 * (size_t)N * (P + 1) + 2 * (size_t)kTile * (N + 1) + 2 * (size_t)kTile * (P + 1) +
-         2 * (size_t)kTile * kLdT + 5 * (size_t)Q + 32;
+constexpr int kWarps = kSsdThreads / 32;
+constexpr int kBlk = 16 * kWarps;                  // rows of the held block
+constexpr int kStep = 32;                          // rows of a streamed step
+constexpr int kLdN = kMaxN + FaPad<float>::value;  // 132
+constexpr int kLdP = kMaxP + FaPad<float>::value;  // 68
+constexpr int kKN = kMaxN / 8;                     // 8-steps (or n-tiles) over N
+constexpr int kKP = kMaxP / 8;                     // 8-steps (or n-tiles) over P
+constexpr int kJS = kStep / 8;                     // n-tiles (or 8-steps) of a step
+constexpr int kPlN = kStep * kLdN;                 // words of one plane of a streamed N-wide step
+constexpr int kPlP = kStep * kLdP;                 // words of one plane of a streamed P-wide step
+constexpr size_t kFixedFloats =
+    (size_t)kMaxN * kLdP + (size_t)kBlk * (kLdN + kLdP) + 2 * (size_t)(kPlN + kPlP) + 32;
+static_assert(kMaxN * kLdP <= 2 * (kPlN + kPlP), "h_prev fits over the step planes");
+static_assert(kMaxN == 16 * kWarps, "warp w owns dh rows 16w..16w+15");
+static_assert(kMaxN % 16 == 0 && kMaxP % 16 == 0, "halves of 8-column tiles");
+
+// acc[j] += A Bt^T for the warp's 16 rows of A (row-major, k over K) and
+// rows [8j, 8j + 8) of Bt (row-major, k along the row).
+template <int K, int NJ, int LDA, int LDB>
+__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const float* A, const float* Bt,
+                                        int g, int tq) {
+#pragma unroll
+  for (int ks = 0; ks < K / 8; ++ks) {
+    uint32_t ab[4], as[4];
+    fa_frag_a<true, LDA>(A + ks * 8, g, tq, ab, as);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t bb[2], bs[2];
+      fa_frag_bt<true, LDB>(Bt + j * 8 * LDB + ks * 8, g, tq, bb, bs);
+      fa_mma3<true, true>(acc[j], ab, as, bb, bs);
+    }
+  }
 }
 
-// The (t, s) tile's scores S = C_t . B_s and dM = dy_t . xb_s for the thread's
-// rows t = t0 + ty + 16 i and columns s = s0 + tx + 16 j, with the masked
-// decay D; returns S in sc and ds = dM D in dm.
-__device__ __forceinline__ void score_tile(const float* Cs, const float* Bs, const float* Ys,
-                                           const float* Xs, const float* Lc, const float* dtv,
-                                           int ldN, int ldP, int N, int P, int Q, int t0, int s0,
-                                           int tx, int ty, float (&sc)[kRows][kRows],
-                                           float (&dm)[kRows][kRows]) {
+// acc[j] += A Bt^T as mma_abt, with Bt staged as split planes (big at Bt,
+// small PL words on): no split at the read.
+template <int K, int NJ, int LDA, int LDB, int PL>
+__device__ __forceinline__ void mma_abt_planes(float (&acc)[NJ][4], const float* A,
+                                               const uint32_t* Bt, int g, int tq) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int ks = 0; ks < K / 8; ++ks) {
+    uint32_t ab[4], as[4];
+    fa_frag_a<true, LDA>(A + ks * 8, g, tq, ab, as);
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) sc[i][j] = dm[i][j] = 0.f;
-  for (int n = 0; n < N; ++n) {
-    float cv[kRows], bv[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) cv[i] = Cs[(ty + 16 * i) * ldN + n];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) bv[j] = Bs[(tx + 16 * j) * ldN + n];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) sc[i][j] += cv[i] * bv[j];
-  }
-  for (int pp = 0; pp < P; ++pp) {
-    float yv[kRows], xv[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) yv[i] = Ys[(ty + 16 * i) * ldP + pp];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) xv[j] = Xs[(tx + 16 * j) * ldP + pp];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) dm[i][j] += yv[i] * xv[j];
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = t0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int s = s0 + tx + 16 * j;
-      // the decay only where s <= t: e^{L_t - L_s} <= 1, never inf
-      dm[i][j] = (t < Q && s <= t) ? dm[i][j] * dtv[s] * expf(Lc[t] - Lc[s]) : 0.f;
+    for (int j = 0; j < NJ; ++j) {
+      const uint32_t* r = Bt + (8 * j + g) * LDB + ks * 8 + tq;
+      const uint32_t bb[2] = {r[0], r[4]}, bs[2] = {r[PL], r[PL + 4]};
+      fa_mma3<true, true>(acc[j], ab, as, bb, bs);
     }
+  }
+}
+
+// out[n] += F R for F the warp's 16 x 8KJ accumulator tiles f (fed back as
+// the A operand, k permuted) and R rows [0, 8KJ) of a row-major tile staged
+// as split planes (fa_frag_b_rows' reads); each group of four n-tiles'
+// products in fresh registers, joined by a rounded add.
+template <int KJ, int NN, int LDR, int PL>
+__device__ __forceinline__ void mma_acc_rows(float (&out)[NN][4], const float (&f)[KJ][4],
+                                             const uint32_t* R, int g, int tq) {
+  constexpr int kG = 4;
+  static_assert(NN % kG == 0, "n-tiles in groups of four");
+  uint32_t fb[KJ][4], fs[KJ][4];
+#pragma unroll
+  for (int k = 0; k < KJ; ++k) fa_frag_acc(f[k], fb[k], fs[k]);
+#pragma unroll
+  for (int n0 = 0; n0 < NN; n0 += kG) {
+    float part[kG][4];
+#pragma unroll
+    for (int u = 0; u < kG; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[u][i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < KJ; ++k)
+#pragma unroll
+      for (int u = 0; u < kG; ++u) {
+        const uint32_t* r = R + (k * 8 + 2 * tq) * LDR + (n0 + u) * 8 + g;
+        const uint32_t bb[2] = {r[0], r[LDR]}, bs[2] = {r[PL], r[PL + LDR]};
+        fa_mma3<true, true>(part[u], fb[k], fs[k], bb, bs);
+      }
+#pragma unroll
+    for (int u = 0; u < kG; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[n0 + u][i] += part[u][i];
+  }
+}
+
+// Sum over the four lanes of a quad (the lanes that share a fragment row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// cp.async of rows [r0, r0 + R) of a chunk (row r at src + r * stride,
+// ncol floats) into dst with pitch ld, W columns: zeros past ncol and past
+// row nvalid.  All of a thread's copies are in flight until fa_cp_wait.
+template <int R, int W>
+__device__ __forceinline__ void cp_rows(float* dst, int ld, const float* __restrict__ src,
+                                        size_t stride, int r0, int nvalid, int ncol) {
+  for (int idx = threadIdx.x; idx < R * W; idx += kSsdThreads) {
+    const int r = idx / W, col = idx % W;
+    const bool ok = r0 + r < nvalid && col < ncol;
+    fa_cp4(dst + r * ld + col, ok ? src + (size_t)(r0 + r) * stride + col : src, ok);
+  }
+}
+
+// Ask L1 for rows [r0, r0 + R) of a chunk ahead of their load, one prefetch
+// per 128 bytes.
+template <int R>
+__device__ __forceinline__ void prefetch_rows(const float* __restrict__ src, size_t stride,
+                                              int r0, int nvalid, int ncol) {
+  const int per_row = (ncol + 31) / 32;
+  for (int i = threadIdx.x; i < R * per_row; i += kSsdThreads) {
+    const int r = i / per_row, col = i % per_row * 32;
+    if (r0 + r < nvalid)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(src + (size_t)(r0 + r) * stride + col));
+  }
+}
+
+// Rows as cp_rows reads them, loaded and split into planes: the big TF32
+// part of each value at dst, the small one PL words on.
+template <int R, int W, int PL>
+__device__ __forceinline__ void load_split(uint32_t* dst, int ld, const float* __restrict__ src,
+                                           size_t stride, int r0, int nvalid, int ncol) {
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < R * W; idx += kSsdThreads) {
+    const int r = idx / W, col = idx % W;
+    const float v = r0 + r < nvalid && col < ncol ? src[(size_t)(r0 + r) * stride + col] : 0.f;
+    fa_split<true>(v, dst[r * ld + col], dst[PL + r * ld + col]);
   }
 }
 
@@ -97,36 +230,35 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                SsdParams p) {
   extern __shared__ __align__(16) float smem[];
   const int h = blockIdx.x, b = blockIdx.y;
-  const int g = h / (p.H / p.G);
-  const int N = p.N, P = p.P, Q = p.Q, ldN = N + 1, ldP = P + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* dhs = smem;                 // N x ldP: dh carried from the later chunks
-  float* hps = dhs + N * ldP;        // N x ldP: this chunk's entry state
-  float* Cs = hps + N * ldP;         // 64 x ldN: C rows of a t-block
-  float* Bs = Cs + kTile * ldN;      // 64 x ldN: B rows of an s-block
-  float* Ys = Bs + kTile * ldN;      // 64 x ldP: dy rows of a t-block
-  float* Xs = Ys + kTile * ldP;      // 64 x ldP: x rows of an s-block
-  float* Ps = Xs + kTile * ldP;      // 64 x kLdT: S . D of a tile (and scratch)
-  float* Ds = Ps + kTile * kLdT;     // 64 x kLdT: ds = dM . D of a tile
-  float* Lc = Ds + kTile * kLdT;     // Q: cumulative log-decay
+  const int grp = h / (p.H / p.G);
+  const int N = p.N, P = p.P, Q = p.Q;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const int r0 = 16 * warp;          // the warp's first row of the held block
+  float* dhs = smem;                 // kMaxN x kLdP: dh carried from the later chunks
+  float* hN = dhs + kMaxN * kLdP;    // kBlk x kLdN: held B (pass B) or C (pass A)
+  float* hP = hN + kBlk * kLdN;      // kBlk x kLdP: held x (pass B) or dy (pass A)
+  // streamed C (pass B) or B (pass A), then dy or x, each as split planes
+  uint32_t* sN = reinterpret_cast<uint32_t*>(hP + kBlk * kLdP);  // 2 x kStep x kLdN
+  uint32_t* sP = sN + 2 * kPlN;                                  // 2 x kStep x kLdP
+  float* hps = reinterpret_cast<float*>(sN);  // kMaxN x kLdP: h_prev, in pass A's tail
+  float* red = reinterpret_cast<float*>(sP + 2 * kPlP);  // 32: block-sum scratch
+  float* Lc = red + 32;              // Q: cumulative log-decay
   float* dtv = Lc + Q;               // Q: dt
   float* dLc = dtv + Q;              // Q: dLoss/dL_t, then its suffix sums
   float* rdot = dLc + Q;             // Q: <dxb_s, x_s>
   float* dww = rdot + Q;             // Q: w_s (B_s . (xb_s dh^T))
-  float* red = dww + Q;              // 32: block-sum scratch
   const float a = A[h];
   const size_t x_stride = (size_t)p.H * P, bc_stride = (size_t)p.G * N;
-  const int nT = (Q + kTile - 1) / kTile;
   float dA_acc = 0.f;
 
-  for (int i = threadIdx.x; i < N * ldP; i += kSsdThreads) dhs[i] = 0.f;
+  for (int i = threadIdx.x; i < kMaxN * kLdP; i += kSsdThreads) dhs[i] = 0.f;
 
   for (int c = p.nc - 1; c >= 0; --c) {
     const size_t step0 = (size_t)b * p.T + (size_t)c * Q;
     const float* xc = x + (step0 * p.H + h) * P;
     const float* dyc = dy + (step0 * p.H + h) * P;
-    const float* Bc = Bm + (step0 * p.G + g) * N;
-    const float* Cc = Cm + (step0 * p.G + g) * N;
+    const float* Bc = Bm + (step0 * p.G + grp) * N;
+    const float* Cc = Cm + (step0 * p.G + grp) * N;
     const float* st = states + (((size_t)b * p.H + h) * p.nc + c) * (size_t)N * P;
     __syncthreads();  // the later chunk is done with every buffer
     for (int i = threadIdx.x; i < Q; i += kSsdThreads) {
@@ -134,292 +266,278 @@ ssd_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       dtv[i] = d;
       Lc[i] = d * a;
     }
-    for (int i = threadIdx.x; i < N * P; i += kSsdThreads) hps[(i / P) * ldP + i % P] = st[i];
     __syncthreads();
     ssd_prefix_sum(Lc, Q);
     __syncthreads();
     const float Ltot = Lc[Q - 1], eLtot = expf(Ltot);
 
     // ---- pass B: per s-block, sums over t >= s, and the state terms ----
-    for (int sb = 0; sb < nT; ++sb) {
-      const int s0 = sb * kTile;
-      __syncthreads();
-      ssd_load_rows(Bs, ldN, Bc, bc_stride, s0, Q, N);
-      ssd_load_rows(Xs, ldP, xc, x_stride, s0, Q, P);
-      float dB[kRows][kColsN], dxb[kRows][kColsP], cs[kRows];
+    for (int s0 = 0; s0 < Q; s0 += kBlk) {
+      __syncthreads();  // hN, hP are free
+      cp_rows<kBlk, kMaxN>(hN, kLdN, Bc, bc_stride, s0, Q, N);
+      cp_rows<kBlk, kMaxP>(hP, kLdP, xc, x_stride, s0, Q, P);
+      fa_cp_commit();
+      const int sw = s0 + r0;  // the warp's first s
+      const bool live = sw < Q;
+      float Ls[2], dts[2], cs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        cs[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < kColsN; ++j) dB[i][j] = 0.f;
-#pragma unroll
-        for (int j = 0; j < kColsP; ++j) dxb[i][j] = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const int s = sw + g + 8 * r;
+        Ls[r] = s < Q ? Lc[s] : 0.f;
+        dts[r] = s < Q ? dtv[s] : 0.f;
       }
-      for (int tb = sb; tb < nT; ++tb) {
-        const int t0 = tb * kTile;
-        __syncthreads();  // Cs, Ys, Ps and Ds are free
-        ssd_load_rows(Cs, ldN, Cc, bc_stride, t0, Q, N);
-        ssd_load_rows(Ys, ldP, dyc, x_stride, t0, Q, P);
-        __syncthreads();
-        float sc[kRows][kRows], ds[kRows][kRows];
-        score_tile(Cs, Bs, Ys, Xs, Lc, dtv, ldN, ldP, N, P, Q, t0, s0, tx, ty, sc, ds);
+      float dB[kKN][4], dxb[kKP][4];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            const int t = t0 + ty + 16 * i, s = s0 + tx + 16 * j;
-            const float d = (t < Q && s <= t) ? expf(Lc[t] - Lc[s]) : 0.f;
-            Ps[(ty + 16 * i) * kLdT + tx + 16 * j] = sc[i][j] * d;
-            Ds[(ty + 16 * i) * kLdT + tx + 16 * j] = ds[i][j];
-            cs[j] += ds[i][j] * sc[i][j];  // column j of dL's ds . S
-          }
-        __syncthreads();
-        // rows s = s0 + ty + 16 i: dB += ds^T C, dxb += (S . D)^T dy
-        for (int t = 0; t < kTile; ++t) {
-          float pv[kRows], dv[kRows], cv[kColsN], yv[kColsP];
+        for (int n = 0; n < kKN; ++n) dB[n][i] = 0.f;
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            pv[i] = Ps[t * kLdT + ty + 16 * i];
-            dv[i] = Ds[t * kLdT + ty + 16 * i];
-          }
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) cv[j] = tx + 16 * j < N ? Cs[t * ldN + tx + 16 * j] : 0.f;
-#pragma unroll
-          for (int j = 0; j < kColsP; ++j) yv[j] = tx + 16 * j < P ? Ys[t * ldP + tx + 16 * j] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-            for (int j = 0; j < kColsN; ++j) dB[i][j] += dv[i] * cv[j];
-#pragma unroll
-            for (int j = 0; j < kColsP; ++j) dxb[i][j] += pv[i] * yv[j];
-          }
-        }
+        for (int n = 0; n < kKP; ++n) dxb[n][i] = 0.f;
       }
+      for (int t0 = s0; t0 < Q; t0 += kStep) {
+        __syncthreads();  // sN, sP are free
+        load_split<kStep, kMaxN, kPlN>(sN, kLdN, Cc, bc_stride, t0, Q, N);
+        load_split<kStep, kMaxP, kPlP>(sP, kLdP, dyc, x_stride, t0, Q, P);
+        fa_cp_wait<0>();  // the held block
+        __syncthreads();
+        prefetch_rows<kStep>(Cc, bc_stride, t0 + kStep, Q, N);
+        prefetch_rows<kStep>(dyc, x_stride, t0 + kStep, Q, P);
+        if (!live || t0 + kStep <= sw) continue;  // every t of the step is before the rows
+        float S[kJS][4], dM[kJS][4];
+#pragma unroll
+        for (int j = 0; j < kJS; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) S[j][i] = dM[j][i] = 0.f;
+        // S^T = B_s C_t^T and x_s dy_t^T
+        mma_abt_planes<kMaxN, kJS, kLdN, kLdN, kPlN>(S, hN + r0 * kLdN, sN, g, tq);
+        mma_abt_planes<kMaxP, kJS, kLdP, kLdP, kPlP>(dM, hP + r0 * kLdP, sP, g, tq);
+#pragma unroll
+        for (int j = 0; j < kJS; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i >> 1, s = sw + g + 8 * r, t = t0 + 8 * j + 2 * tq + (i & 1);
+            // the decay only where s <= t: e^{L_t - L_s} <= 1, never inf
+            const float d = t < Q && s <= t ? __expf(Lc[t] - Ls[r]) : 0.f;
+            const float ds = dM[j][i] * dts[r] * d;
+            cs[r] += ds * S[j][i];  // column s of dL's ds . S
+            dM[j][i] = ds;
+            S[j][i] *= d;
+          }
+        mma_acc_rows<kJS, kKN, kLdN, kPlN>(dB, dM, sN, g, tq);  // dB_s += ds^T C_t
+        mma_acc_rows<kJS, kKP, kLdP, kPlP>(dxb, S, sP, g, tq);  // dxb_s += (S.D)^T dy_t
+      }
+      if (!live) continue;
 
       // state terms of the s rows: h = e^{L_Q} h_prev + (B . w)^T xb
-      float w[kRows], dts[kRows];
+      float w[2], dwp[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int s = s0 + ty + 16 * i;
-        w[i] = s < Q ? expf(Ltot - Lc[s]) : 0.f;
-        dts[i] = s < Q ? dtv[s] : 0.f;
+      for (int r = 0; r < 2; ++r) w[r] = sw + g + 8 * r < Q ? expf(Ltot - Ls[r]) : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // dBw = xb dh^T; dB += w . dBw; dw = <dBw, B>
+        float part[kKN / 2][4];
+#pragma unroll
+        for (int n = 0; n < kKN / 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+        mma_abt<kMaxP, kKN / 2, kLdP, kLdP>(part, hP + r0 * kLdP, dhs + half * (kMaxN / 2) * kLdP,
+                                            g, tq);
+#pragma unroll
+        for (int n = 0; n < kKN / 2; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i >> 1, col = half * (kMaxN / 2) + 8 * n + 2 * tq + (i & 1);
+            const float v = part[n][i] * dts[r];
+            dB[half * (kKN / 2) + n][i] += w[r] * v;
+            dwp[r] += v * hN[(r0 + g + 8 * r) * kLdN + col];
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int s = sw + g + 8 * r;
+        if (s >= Q) continue;
+        float* dbrow = dBh + ((step0 + s) * p.H + h) * N;
+#pragma unroll
+        for (int n = 0; n < kKN; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * n + 2 * tq + e < N) dbrow[8 * n + 2 * tq + e] = dB[n][2 * r + e];
       }
       {  // dxb += w . (B dh)
-        float bdh[kRows][kColsP];
+        float part[kKP][4];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+        for (int n = 0; n < kKP; ++n)
 #pragma unroll
-          for (int j = 0; j < kColsP; ++j) bdh[i][j] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float bv[kRows], hv[kColsP];
+          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) bv[i] = Bs[(ty + 16 * i) * ldN + n];
+        for (int ks = 0; ks < kKN; ++ks) {
+          uint32_t ab[4], as[4];
+          fa_frag_a_pairs<true, kLdN>(hN + r0 * kLdN + ks * 8, g, tq, ab, as);
 #pragma unroll
-          for (int j = 0; j < kColsP; ++j) hv[j] = tx + 16 * j < P ? dhs[n * ldP + tx + 16 * j] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kColsP; ++j) bdh[i][j] += bv[i] * hv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kColsP; ++j) dxb[i][j] += w[i] * bdh[i][j];
-      }
-      float dwp[kRows];
-      {  // dBw = xb dh^T; dB += w . dBw; dw = <dBw, B>
-        float dBw[kRows][kColsN];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) dBw[i][j] = 0.f;
-        for (int pp = 0; pp < P; ++pp) {
-          float xv[kRows], hv[kColsN];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) xv[i] = Xs[(ty + 16 * i) * ldP + pp];
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) hv[j] = tx + 16 * j < N ? dhs[(tx + 16 * j) * ldP + pp] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kColsN; ++j) dBw[i][j] += xv[i] * hv[j];
-        }
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          dwp[i] = 0.f;
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) {
-            const float v = dBw[i][j] * dts[i];
-            dB[i][j] += w[i] * v;
-            if (tx + 16 * j < N) dwp[i] += v * Bs[(ty + 16 * i) * ldN + tx + 16 * j];
+          for (int n = 0; n < kKP; ++n) {
+            uint32_t bb[2], bs[2];
+            fa_frag_b_rows<true, kLdP>(dhs + ks * 8 * kLdP + n * 8, g, tq, bb, bs);
+            fa_mma3<true, true>(part[n], ab, as, bb, bs);
           }
         }
-      }
-      // write dx and dB; <dxb, x> and w . dw per row
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int s = s0 + ty + 16 * i;
+        for (int n = 0; n < kKP; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dxb[n][i] += w[i >> 1] * part[n][i];
+      }
+      // write dx; <dxb, x>, w . dw and dL's column part per row
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int s = sw + g + 8 * r;
         float rd = 0.f;
 #pragma unroll
-        for (int j = 0; j < kColsP; ++j)
-          if (tx + 16 * j < P) rd += dxb[i][j] * Xs[(ty + 16 * i) * ldP + tx + 16 * j];
-        rd = ssd_row_sum(rd);
-        const float dw = ssd_row_sum(dwp[i]);
+        for (int n = 0; n < kKP; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            rd += dxb[n][2 * r + e] * hP[(r0 + g + 8 * r) * kLdP + 8 * n + 2 * tq + e];
+        rd = quad_sum(rd);
+        const float dw = quad_sum(dwp[r]) * w[r], csum = quad_sum(cs[r]);
         if (s >= Q) continue;
-        if (tx == 0) {
+        if (tq == 0) {
           rdot[s] = rd;
-          dww[s] = dw * w[i];
+          dww[s] = dw;
+          dLc[s] = -csum - dw;
         }
         float* dxrow = dx + ((step0 + s) * p.H + h) * P;
 #pragma unroll
-        for (int j = 0; j < kColsP; ++j)
-          if (tx + 16 * j < P) dxrow[tx + 16 * j] = dxb[i][j] * dts[i];
-        float* dbrow = dBh + ((step0 + s) * p.H + h) * N;
+        for (int n = 0; n < kKP; ++n)
 #pragma unroll
-        for (int j = 0; j < kColsN; ++j)
-          if (tx + 16 * j < N) dbrow[tx + 16 * j] = dB[i][j];
-      }
-      // column sums of ds . S over the 16 thread rows, in a fixed order
-      __syncthreads();  // every read of Ps is done
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) Ps[ty * kLdT + tx + 16 * j] = cs[j];
-      __syncthreads();
-      if (threadIdx.x < kTile && s0 + threadIdx.x < Q) {
-        float col = 0.f;
-        for (int r = 0; r < 16; ++r) col += Ps[r * kLdT + threadIdx.x];
-        dLc[s0 + threadIdx.x] = -col - dww[s0 + threadIdx.x];
+          for (int e = 0; e < 2; ++e)
+            if (8 * n + 2 * tq + e < P) dxrow[8 * n + 2 * tq + e] = dxb[n][2 * r + e] * dts[r];
       }
     }
 
     // dL_Q = e^{L_Q} <dh, h_prev> + sum_s dww_s, from dh before it moves on
     __syncthreads();
-    float part = 0.f, part_w = 0.f;
+    float part_h = 0.f, part_w = 0.f;
     for (int i = threadIdx.x; i < N * P; i += kSsdThreads) {
-      const int k = (i / P) * ldP + i % P;
-      part += dhs[k] * hps[k];
+      const int k = (i / P) * kLdP + i % P;
+      part_h += dhs[k] * st[i];
     }
     for (int s = threadIdx.x; s < Q; s += kSsdThreads) part_w += dww[s];
-    const float dLtot = eLtot * ssd_block_sum(part, red) + ssd_block_sum(part_w, red);
+    const float dLtot = eLtot * ssd_block_sum(part_h, red) + ssd_block_sum(part_w, red);
+    // dh <- e^{L_Q} dh; pass A adds (C e^{L})^T dy block by block
+    for (int i = threadIdx.x; i < kMaxN * kLdP; i += kSsdThreads) dhs[i] *= eLtot;
 
-    // ---- pass A: per t-block, sums over s <= t, and dh_prev ----
-    float dhp[kColsN][kColsP];  // (C e^{L})^T dy for n = ty + 16 i, p = tx + 16 j
+    // ---- pass A: per t-block, sums over s <= t, the inter-chunk terms and dh ----
+    for (int t0 = 0; t0 < Q; t0 += kBlk) {
+      __syncthreads();  // hN, hP are free (and dhs is scaled)
+      cp_rows<kBlk, kMaxN>(hN, kLdN, Cc, bc_stride, t0, Q, N);
+      cp_rows<kBlk, kMaxP>(hP, kLdP, dyc, x_stride, t0, Q, P);
+      fa_cp_commit();
+      const int tw = t0 + r0;  // the warp's first t
+      const bool live = tw < Q;
+      float Lt[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kColsN; ++i)
+      for (int r = 0; r < 2; ++r) Lt[r] = tw + g + 8 * r < Q ? Lc[tw + g + 8 * r] : 0.f;
+      float dC[kKN][4];
 #pragma unroll
-      for (int j = 0; j < kColsP; ++j) dhp[i][j] = 0.f;
-    for (int tb = 0; tb < nT; ++tb) {
-      const int t0 = tb * kTile;
+      for (int n = 0; n < kKN; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dC[n][i] = 0.f;
+      const int s_end = min(t0 + kBlk, Q);
+      for (int s0 = 0; s0 < s_end; s0 += kStep) {
+        __syncthreads();  // sN, sP are free
+        load_split<kStep, kMaxN, kPlN>(sN, kLdN, Bc, bc_stride, s0, Q, N);
+        load_split<kStep, kMaxP, kPlP>(sP, kLdP, xc, x_stride, s0, Q, P);
+        fa_cp_wait<0>();  // the held block
+        __syncthreads();
+        prefetch_rows<kStep>(Bc, bc_stride, s0 + kStep, s_end, N);
+        prefetch_rows<kStep>(xc, x_stride, s0 + kStep, s_end, P);
+        if (!live || s0 > tw + 15) continue;  // every s of the step is after the rows
+        float S[kJS][4], dM[kJS][4];
+#pragma unroll
+        for (int j = 0; j < kJS; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) S[j][i] = dM[j][i] = 0.f;
+        // S = C_t B_s^T and dy_t x_s^T
+        mma_abt_planes<kMaxN, kJS, kLdN, kLdN, kPlN>(S, hN + r0 * kLdN, sN, g, tq);
+        mma_abt_planes<kMaxP, kJS, kLdP, kLdP, kPlP>(dM, hP + r0 * kLdP, sP, g, tq);
+#pragma unroll
+        for (int j = 0; j < kJS; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = i >> 1, t = tw + g + 8 * r, s = s0 + 8 * j + 2 * tq + (i & 1);
+            const float ds = t < Q && s <= t ? dM[j][i] * dtv[s] * __expf(Lt[r] - Lc[s]) : 0.f;
+            rs[r] += ds * S[j][i];  // row t of dL's ds . S
+            dM[j][i] = ds;
+          }
+        mma_acc_rows<kJS, kKN, kLdN, kPlN>(dC, dM, sN, g, tq);  // dC_t += ds B_s
+      }
+      __syncthreads();  // the step planes are free: h_prev goes there
+      cp_rows<kMaxN, kMaxP>(hps, kLdP, st, P, 0, N, P);
+      fa_cp_commit();
+      fa_cp_wait<0>();
       __syncthreads();
-      ssd_load_rows(Cs, ldN, Cc, bc_stride, t0, Q, N);
-      ssd_load_rows(Ys, ldP, dyc, x_stride, t0, Q, P);
-      float dC[kRows][kColsN], rs[kRows];
+      if (live) {  // inter-chunk terms of the t rows: dyh = dy h_prev^T
+        float el[2], ip[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        rs[i] = 0.f;
+        for (int r = 0; r < 2; ++r) el[r] = tw + g + 8 * r < Q ? expf(Lt[r]) : 0.f;
 #pragma unroll
-        for (int j = 0; j < kColsN; ++j) dC[i][j] = 0.f;
-      }
-      for (int sb = 0; sb <= tb; ++sb) {
-        const int s0 = sb * kTile;
-        __syncthreads();  // Bs, Xs and Ds are free
-        ssd_load_rows(Bs, ldN, Bc, bc_stride, s0, Q, N);
-        ssd_load_rows(Xs, ldP, xc, x_stride, s0, Q, P);
-        __syncthreads();
-        float sc[kRows][kRows], ds[kRows][kRows];
-        score_tile(Cs, Bs, Ys, Xs, Lc, dtv, ldN, ldP, N, P, Q, t0, s0, tx, ty, sc, ds);
+        for (int half = 0; half < 2; ++half) {
+          float part[kKN / 2][4];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i)
+          for (int n = 0; n < kKN / 2; ++n)
 #pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            Ds[(ty + 16 * i) * kLdT + tx + 16 * j] = ds[i][j];
-            rs[i] += ds[i][j] * sc[i][j];  // row i of dL's ds . S
-          }
-        __syncthreads();
-        // rows t = t0 + ty + 16 i: dC += ds B
-        for (int s = 0; s < kTile; ++s) {
-          float dv[kRows], bv[kColsN];
+            for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+          mma_abt<kMaxP, kKN / 2, kLdP, kLdP>(part, hP + r0 * kLdP,
+                                              hps + half * (kMaxN / 2) * kLdP, g, tq);
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) dv[i] = Ds[(ty + 16 * i) * kLdT + s];
+          for (int n = 0; n < kKN / 2; ++n)
 #pragma unroll
-          for (int j = 0; j < kColsN; ++j) bv[j] = tx + 16 * j < N ? Bs[s * ldN + tx + 16 * j] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kColsN; ++j) dC[i][j] += dv[i] * bv[j];
-        }
-      }
-      // inter-chunk terms of the t rows: dyh = dy h_prev^T
-      float el[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int t = t0 + ty + 16 * i;
-        el[i] = t < Q ? expf(Lc[t]) : 0.f;
-      }
-      float ip[kRows];
-      {
-        float dyh[kRows][kColsN];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) dyh[i][j] = 0.f;
-        for (int pp = 0; pp < P; ++pp) {
-          float yv[kRows], hv[kColsN];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) yv[i] = Ys[(ty + 16 * i) * ldP + pp];
-#pragma unroll
-          for (int j = 0; j < kColsN; ++j) hv[j] = tx + 16 * j < N ? hps[(tx + 16 * j) * ldP + pp] : 0.f;
-#pragma unroll
-          for (int i = 0; i < kRows; ++i)
-#pragma unroll
-            for (int j = 0; j < kColsN; ++j) dyh[i][j] += yv[i] * hv[j];
+            for (int i = 0; i < 4; ++i) {
+              const int r = i >> 1, col = half * (kMaxN / 2) + 8 * n + 2 * tq + (i & 1);
+              dC[half * (kKN / 2) + n][i] += part[n][i] * el[r];
+              ip[r] += part[n][i] * hN[(r0 + g + 8 * r) * kLdN + col];
+            }
         }
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          ip[i] = 0.f;
+        for (int r = 0; r < 2; ++r) {
+          const int t = tw + g + 8 * r;
+          const float rsum = quad_sum(rs[r]), isum = quad_sum(ip[r]);
+          if (t >= Q) continue;
+          if (tq == 0) dLc[t] += rsum + isum * el[r];  // t's only writer in pass A
+          float* dcrow = dCh + ((step0 + t) * p.H + h) * N;
 #pragma unroll
-          for (int j = 0; j < kColsN; ++j) {
-            dC[i][j] += dyh[i][j] * el[i];
-            if (tx + 16 * j < N) ip[i] += dyh[i][j] * Cs[(ty + 16 * i) * ldN + tx + 16 * j];
+          for (int n = 0; n < kKN; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (8 * n + 2 * tq + e < N) dcrow[8 * n + 2 * tq + e] = dC[n][2 * r + e];
+        }
+      }
+      {  // dh += (C e^{L})^T dy over this block; warp w owns dh rows 16w..16w+15
+        const int nrows = min(kBlk, Q - t0);
+        float part[kKP][4];
+#pragma unroll
+        for (int n = 0; n < kKP; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[n][i] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < kBlk / 8; ++ks) {
+          if (8 * ks >= nrows) break;
+          const int ta = t0 + 8 * ks + 2 * tq;
+          const float e0 = ta < Q ? expf(Lc[ta]) : 0.f, e1 = ta + 1 < Q ? expf(Lc[ta + 1]) : 0.f;
+          uint32_t ab[4], as[4];
+          fa_frag_at_rows<kLdN>(hN + 8 * ks * kLdN + r0, g, tq, e0, e1, ab, as);
+#pragma unroll
+          for (int n = 0; n < kKP; ++n) {
+            uint32_t bb[2], bs[2];
+            fa_frag_b_rows<true, kLdP>(hP + 8 * ks * kLdP + n * 8, g, tq, bb, bs);
+            fa_mma3<true, true>(part[n], ab, as, bb, bs);
           }
         }
-      }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int t = t0 + ty + 16 * i;
-        const float rsum = ssd_row_sum(rs[i]), isum = ssd_row_sum(ip[i]);
-        if (t >= Q) continue;
-        if (tx == 0) dLc[t] += rsum + isum * el[i];  // t's only writer in pass A
-        float* dcrow = dCh + ((step0 + t) * p.H + h) * N;
+        for (int n = 0; n < kKP; ++n)
 #pragma unroll
-        for (int j = 0; j < kColsN; ++j)
-          if (tx + 16 * j < N) dcrow[tx + 16 * j] = dC[i][j];
-      }
-      // dh_prev += (C e^{L})^T dy over this t-block
-      const int nt = min(kTile, Q - t0);
-      for (int t = 0; t < nt; ++t) {
-        const float e = expf(Lc[t0 + t]);
-        float cv[kColsN], yv[kColsP];
-#pragma unroll
-        for (int i = 0; i < kColsN; ++i) cv[i] = ty + 16 * i < N ? Cs[t * ldN + ty + 16 * i] * e : 0.f;
-#pragma unroll
-        for (int j = 0; j < kColsP; ++j) yv[j] = tx + 16 * j < P ? Ys[t * ldP + tx + 16 * j] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kColsN; ++i)
-#pragma unroll
-          for (int j = 0; j < kColsP; ++j) dhp[i][j] += cv[i] * yv[j];
+          for (int i = 0; i < 4; ++i)
+            dhs[(r0 + g + 8 * (i >> 1)) * kLdP + 8 * n + 2 * tq + (i & 1)] += part[n][i];
       }
     }
 
-    // dh <- (C e^{L})^T dy + e^{L_Q} dh (each thread its own elements)
-#pragma unroll
-    for (int i = 0; i < kColsN; ++i) {
-      const int n = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < kColsP; ++j) {
-        const int pp = tx + 16 * j;
-        if (n < N && pp < P) dhs[n * ldP + pp] = dhp[i][j] + eLtot * dhs[n * ldP + pp];
-      }
-    }
     // dla_s = sum_{t >= s} dL_t + dL_Q;  ddt = dla A + <dxb, x>;  dA += <dla, dt>
     __syncthreads();
     ssd_suffix_sum(dLc, Q);
@@ -448,7 +566,7 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* A, const void*
                        int Q, void* stream) {
   const SsdParams p{B, T, H, P, G, N, Q, Q > 0 ? T / Q : 0};
   if (!ssd_params_ok(p)) return (int)cudaErrorInvalidValue;
-  const size_t smem = bwd_smem_floats(N, P, Q) * sizeof(float);
+  const size_t smem = (kFixedFloats + 5 * (size_t)Q) * sizeof(float);
   if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   const cudaError_t e =
       cudaFuncSetAttribute(ssd_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -9,11 +9,13 @@
 // One CTA of 256 threads owns one (batch, head) and walks its chunks in
 // order (the forward) or in reverse (the backward), which replaces the TPU
 // kernels' sequential chunk grid axis (src/repro/kernels/ssd.py:100, :229).
-// Inside a chunk, the (Q, Q) decay/score tile does not fit in shared memory
-// at Q = 256 (256 KiB), so it is walked in 64 x 64 sub-tiles, s-block <=
-// t-block only.  The thread (ty, tx) = (tid / 16, tid % 16) of a tile owns
-// rows ty + 16 i and columns tx + 16 j: rows are broadcast reads within a
-// half-warp, columns hit distinct banks (row pitches are odd).
+// The forward (SIMT): inside a chunk, the (Q, Q) decay/score tile does not
+// fit in shared memory at Q = 256 (256 KiB), so it is walked in 64 x 64
+// sub-tiles, s-block <= t-block only.  The thread (ty, tx) = (tid / 16,
+// tid % 16) of a tile owns rows ty + 16 i and columns tx + 16 j: rows are
+// broadcast reads within a half-warp, columns hit distinct banks (its row
+// pitches are odd).  The backward runs on the tensor cores with its own
+// layout and 16-byte row pads (ssd_bwd.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,7 +24,7 @@ constexpr int kSsdThreads = 256;
 constexpr int kTile = 64;                 // rows of a t- or s-block
 constexpr int kLdT = kTile + 1;           // pitch of a 64 x 64 tile in shared memory
 constexpr int kRows = kTile / 16;         // tile rows per thread
-constexpr int kMaxN = 128;                // state size N the per-thread tiles hold
+constexpr int kMaxN = 128;                // largest state size N
 constexpr int kMaxP = 64;                 // head dim P
 constexpr int kColsN = kMaxN / 16;        // columns over N per thread
 constexpr int kColsP = kMaxP / 16;        // columns over P per thread
@@ -92,13 +94,6 @@ __device__ __forceinline__ void ssd_suffix_sum(float* a, int n) {
     if (i >= 0) a[i] = v;
     carry = __shfl_sync(0xffffffffu, v, 0);
   }
-}
-
-// Sum over the 16 lanes tx = 0..15 that share one ty (a half-warp).
-__device__ __forceinline__ float ssd_row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // Sum of v over the CTA, returned to every thread.  `red` holds >= 9 floats.

@@ -120,6 +120,22 @@ def test_cuda_ssd_kernels_match_plain(shape, a_min):
 
 
 @pytest.mark.cuda
+def test_cuda_ssd_bwd_is_deterministic():
+    """ssd_bwd sums across threads in a fixed order, with no atomics: two
+    calls on the same inputs give bit-identical outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    shape, a_min = SSD_CUDA_CASES[0]
+    x, dt, A, Bm, Cm, dy = ssd_inputs(shape, a_min)
+    chunk = shape[-1]
+    _, st = tref.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    first = ssd_k.ssd_bwd(x, dt, A, Bm, Cm, st, dy, chunk=chunk)
+    second = ssd_k.ssd_bwd(x, dt, A, Bm, Cm, st, dy, chunk=chunk)
+    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch,launches,kernel", [
     ("smollm-135m", fa.launches, "fa_fwd"),
     ("mamba2-780m", ssd_k.launches, "ssd_fwd"),

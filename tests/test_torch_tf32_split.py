@@ -1,18 +1,21 @@
-"""The 3xTF32 split of the tensor-core flash-attention kernels, emulated on
-the CPU, and the bound that ``chip_smoke.py`` prices it at.
+"""The 3xTF32 split of the tensor-core kernels, emulated on the CPU, and the
+bound that ``chip_smoke.py`` prices it at.
 
-``fa_fwd.cu``, ``fa_bwd_dq.cu`` and ``fa_bwd_dkv.cu`` run every product on
-the tensor cores as TF32: an f32 operand x becomes big = cvt.rna.tf32(x)
-and small = cvt.rna.tf32(x - big), and a·b is taken as big·small +
-small·big + big·big with f32 sums.  Here cvt.rna is emulated by integer
-arithmetic on the f32 bits, and a product of two TF32 values is exact in
-f32, as on the tensor core.  Attention out, lse, dq, dk and dv computed so
-must meet ``chip_smoke.py``'s float32 tolerances against a float64
-evaluation; single-pass TF32 (big·big alone) must miss them.  That pair of facts is why those tolerances hold for
-the kernels unchanged: the route keeps float32 accuracy, the tolerance was
-not widened to fit it.  (The tensor core's own accumulation does not round
-to nearest; the kernels keep its runs short, and this emulation sums in f32
-with rounding.)
+``fa_fwd.cu``, ``fa_bwd_dq.cu``, ``fa_bwd_dkv.cu`` and ``ssd_bwd.cu`` run
+every product on the tensor cores as TF32: an f32 operand x becomes
+big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a·b is taken
+as big·small + small·big + big·big with f32 sums.  Here cvt.rna is
+emulated by integer arithmetic on the f32 bits, and a product of two TF32
+values is exact in f32, as on the tensor core.  Attention out, lse, dq, dk
+and dv computed so must meet ``chip_smoke.py``'s float32 tolerances
+against a float64 evaluation; single-pass TF32 (big·big alone) must miss
+them.  The SSD backward's chunk algebra, computed so, must meet
+``chip_smoke.SSD_TOL`` the same way, and single-pass TF32 misses it too.
+That pair of facts is why those tolerances hold for the kernels unchanged:
+the route keeps float32 accuracy, the tolerance was not widened to fit it.
+(The tensor core's own accumulation does not round to nearest; the
+kernels keep its runs short, and this emulation sums in f32 with
+rounding.)
 """
 import importlib.util
 import math
@@ -152,6 +155,105 @@ def test_bounds_price_products_as_3xtf32(name, bound_ms, simt_ms):
     shape, opts = next((s, o) for c, s, o, _ in CS.CASES if c == "main-srv")
     got_ms, by, got_simt = CS._bounds(torch, tref, shape, opts,
                                       torch.float32)[name]
+    assert by == "operations"
+    assert got_ms == pytest.approx(bound_ms, rel=0.01)
+    assert got_simt == pytest.approx(simt_ms, rel=0.01)
+
+
+def ssd_chunk_bwd(x, dt, A, Bm, Cm, h_prev, dh, dy, mm):
+    """One chunk of the SSD reverse scan (``ref.ssd_bwd``'s loop body, the
+    algebra of ``ssd_bwd.cu``) with every product through ``mm``: head-major
+    x, dy (H, Q, P), dt (H, Q), A (H,), Bm, Cm (H, Q, N), the chunk's entry
+    state h_prev and the dh carried in from the later chunks (H, N, P).
+    Returns dx, ddt, dA, dB, dC in the kernels' (1, Q, H, ...) layout."""
+    Q = dt.shape[-1]
+    L = torch.cumsum(dt * A[:, None], dim=-1)
+    Ltot = L[:, -1]
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    decay = torch.exp((L[:, :, None] - L[:, None, :]).masked_fill(
+        ~tri, float("-inf")))
+    scores = mm(Cm, Bm.transpose(-1, -2))
+    xb = x * dt[..., None]
+    expL, w = torch.exp(L), torch.exp(Ltot[:, None] - L)
+    dM = mm(dy, xb.transpose(-1, -2))
+    dxb = mm((scores * decay).transpose(-1, -2), dy)
+    ds = dM * decay
+    dC = mm(ds, Bm)
+    dB = mm(ds.transpose(-1, -2), Cm)
+    dd = ds * scores
+    dL = dd.sum(-1) - dd.sum(-2)
+    dyh = mm(dy, h_prev.transpose(-1, -2))
+    dC = dC + dyh * expL[..., None]
+    dL = dL + (dyh * Cm).sum(-1) * expL
+    dxb = dxb + mm(Bm * w[..., None], dh)
+    dBw = mm(xb, dh.transpose(-1, -2))
+    dB = dB + dBw * w[..., None]
+    dw = (dBw * Bm).sum(-1)
+    dLtot = torch.exp(Ltot) * (dh * h_prev).sum((-1, -2)) + (dw * w).sum(-1)
+    dL = dL - dw * w
+    dla = torch.flip(torch.cumsum(torch.flip(dL, [-1]), -1), [-1]) \
+        + dLtot[:, None]
+    ddt = dla * A[:, None] + (dxb * x).sum(-1)
+    lay = lambda t: t.transpose(0, 1).unsqueeze(0)
+    return {"dx": lay(dxb * dt[..., None]), "ddt": lay(ddt),
+            "dA": (dla * dt).sum(-1), "dB": lay(dB), "dC": lay(dC)}
+
+
+def _ssd_chunk_inputs(H=4, Q=256, N=128, P=64, seed=0):
+    """mamba2-780m's widths (chunk 256, N 128, P 64) at a few heads: A from
+    -1 down to -48, dt log-normal around 0.1, B, C ~ N(0, 1/4), x, dy, and
+    an entry state and incoming dh of the size a full-width chunk sees."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    x, dy = f(H, Q, P), f(H, Q, P)
+    dt = 0.1 * torch.exp(0.5 * f(H, Q))
+    A = -torch.linspace(1.0, 48.0, H)
+    Bm, Cm = 0.5 * f(1, Q, N).expand(H, Q, N), 0.5 * f(1, Q, N).expand(H, Q, N)
+    h_prev, dh = 3.0 * f(H, N, P), 3.0 * f(H, N, P)
+    return x, dt, A, Bm.contiguous(), Cm.contiguous(), h_prev, dh, dy
+
+
+def _ssd_misses(got, want, x, dt, A):
+    """Elements outside ``chip_smoke.SSD_TOL`` (scaled per head by
+    ``ref.ssd_scales``) of each output against the float64 evaluation."""
+    lay = lambda t: t.transpose(0, 1).unsqueeze(0)
+    scale = tref.ssd_scales(lay(x.double()), lay(dt.double()), A.double(),
+                            want)
+    atol, rtol = CS.SSD_TOL
+    return {n: int(((got[n].double() - want[n]).abs()
+                    > atol * scale[n] + rtol * want[n].abs()).sum())
+            for n in want}
+
+
+def test_ssd_bwd_3xtf32_meets_ssd_tolerance():
+    """The SSD backward at float32 with its products as 3xTF32 (the route of
+    ssd_bwd.cu) meets SSD_TOL against float64 on every output."""
+    ins = _ssd_chunk_inputs()
+    want = ssd_chunk_bwd(*(t.double() for t in ins), lambda a, b: a @ b)
+    three = ssd_chunk_bwd(*ins, mm_3xtf32)
+    assert all(torch.isfinite(t).all() for t in three.values())
+    assert _ssd_misses(three, want, *ins[:3]) == dict.fromkeys(want, 0)
+
+
+def test_ssd_bwd_single_pass_tf32_misses():
+    """Single-pass TF32 products do not keep the SSD backward at float32
+    accuracy: ddt (which cancels two terms up to |A| = 48 times its size)
+    misses SSD_TOL."""
+    ins = _ssd_chunk_inputs()
+    want = ssd_chunk_bwd(*(t.double() for t in ins), lambda a, b: a @ b)
+    one = ssd_chunk_bwd(*ins, mm_tf32)
+    assert _ssd_misses(one, want, *ins[:3])["ddt"] > 0
+
+
+@pytest.mark.parametrize("name,bound_ms,simt_ms", [
+    ("ssd_fwd", 0.1189, 0.2929),
+    ("ssd_bwd", 0.3930, 0.9678),
+])
+def test_ssd_bounds_price_products_as_3xtf32(name, bound_ms, simt_ms):
+    """At the server half's SSD shape (B=8, T=1024, 48 heads, P 64, G 1,
+    N 128, chunk 256) both SSD kernels stay bound by operations."""
+    shape = next(s for c, s, _ in CS.SSD_CASES if c == "main-srv")
+    got_ms, by, got_simt = CS._ssd_bounds(shape, shape[-1])[name]
     assert by == "operations"
     assert got_ms == pytest.approx(bound_ms, rel=0.01)
     assert got_simt == pytest.approx(simt_ms, rel=0.01)
