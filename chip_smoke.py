@@ -17,8 +17,9 @@ exits non-zero:
    soft-cap, MHA, MQA, the other head dims, and bf16 at each head dim;
    SSD at mamba2-780m's shape (B=2 and B=8, T=1024, 48 heads, P 64, G 1,
    N 128, Q 256, f32), ragged T, T < Q, grouped B/C, the smoke shape and a
-   large decay; at B=8 two ``ssd_bwd`` calls on the same inputs must be
-   bit-identical (its sums run in a fixed order).  At the main shapes,
+   large decay; at B=8 two ``ssd_fwd`` calls and two ``ssd_bwd`` calls
+   on the same inputs must each be bit-identical (their sums run in a
+   fixed order).  At the main shapes,
    times (CUDA events, median of 30 after warm-up) beside the plain
    version, one PyTorch call for the same function where there is one
    (SDPA) and the card's bound: the least time with the products as 3xTF32
@@ -383,13 +384,17 @@ def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
         err = {"ssd_fwd": max(err[n] for n in names[:2]),
                "ssd_bwd": max(err[n] for n in names[2:])}
         if case == "main-srv":  # fixed-order sums: bit-identical calls
-            again = ssd_k.ssd_bwd(*bwd_in, chunk=Q)
-            same = [bool(torch.equal(a, b)) for a, b in zip(grads, again)]
-            print(f"[kernels]   ssd_bwd twice: bit-identical "
-                  f"{dict(zip(names[2:], same))}", flush=True)
-            if not all(same):
-                raise AssertionError("ssd_bwd: two calls on the same inputs "
-                                     "differ")
+            for name, first, again, outs in (
+                    ("ssd_fwd", (y, st), ssd_k.ssd_fwd(*args, chunk=Q),
+                     names[:2]),
+                    ("ssd_bwd", grads, ssd_k.ssd_bwd(*bwd_in, chunk=Q),
+                     names[2:])):
+                same = [bool(torch.equal(a, b)) for a, b in zip(first, again)]
+                print(f"[kernels]   {name} twice: bit-identical "
+                      f"{dict(zip(outs, same))}", flush=True)
+                if not all(same):
+                    raise AssertionError(f"{name}: two calls on the same "
+                                         "inputs differ")
         if not case.startswith("main"):
             continue
         runs = {"ssd_fwd": (lambda: ssd_k.ssd_fwd(*args, chunk=Q),

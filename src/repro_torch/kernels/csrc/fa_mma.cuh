@@ -1,7 +1,7 @@
 // Tensor-core pieces of the three flash-attention kernels (fa_fwd.cu,
-// fa_bwd_dq.cu, fa_bwd_dkv.cu) and the SSD backward (ssd_bwd.cu): the
-// error-compensated 3xTF32 product on mma.sync.m16n8k8, and cp.async
-// staging of row tiles into padded shared memory.
+// fa_bwd_dq.cu, fa_bwd_dkv.cu) and the two SSD kernels (ssd_fwd.cu,
+// ssd_bwd.cu): the error-compensated 3xTF32 product on mma.sync.m16n8k8,
+// and cp.async staging of row tiles into padded shared memory.
 //
 // 3xTF32.  An f32 operand x is split into big = cvt.rna.tf32(x) and
 // small = cvt.rna.tf32(x - big); the product a·b is taken as

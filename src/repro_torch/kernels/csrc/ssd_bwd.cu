@@ -90,21 +90,9 @@
 
 namespace {
 
-constexpr int kWarps = kSsdThreads / 32;
-constexpr int kBlk = 16 * kWarps;                  // rows of the held block
-constexpr int kStep = 32;                          // rows of a streamed step
-constexpr int kLdN = kMaxN + FaPad<float>::value;  // 132
-constexpr int kLdP = kMaxP + FaPad<float>::value;  // 68
-constexpr int kKN = kMaxN / 8;                     // 8-steps (or n-tiles) over N
-constexpr int kKP = kMaxP / 8;                     // 8-steps (or n-tiles) over P
-constexpr int kJS = kStep / 8;                     // n-tiles (or 8-steps) of a step
-constexpr int kPlN = kStep * kLdN;                 // words of one plane of a streamed N-wide step
-constexpr int kPlP = kStep * kLdP;                 // words of one plane of a streamed P-wide step
 constexpr size_t kFixedFloats =
     (size_t)kMaxN * kLdP + (size_t)kBlk * (kLdN + kLdP) + 2 * (size_t)(kPlN + kPlP) + 32;
 static_assert(kMaxN * kLdP <= 2 * (kPlN + kPlP), "h_prev fits over the step planes");
-static_assert(kMaxN == 16 * kWarps, "warp w owns dh rows 16w..16w+15");
-static_assert(kMaxN % 16 == 0 && kMaxP % 16 == 0, "halves of 8-column tiles");
 
 // acc[j] += A Bt^T for the warp's 16 rows of A (row-major, k over K) and
 // rows [8j, 8j + 8) of Bt (row-major, k along the row).
@@ -124,101 +112,10 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const float* A, con
   }
 }
 
-// acc[j] += A Bt^T as mma_abt, with Bt staged as split planes (big at Bt,
-// small PL words on): no split at the read.
-template <int K, int NJ, int LDA, int LDB, int PL>
-__device__ __forceinline__ void mma_abt_planes(float (&acc)[NJ][4], const float* A,
-                                               const uint32_t* Bt, int g, int tq) {
-#pragma unroll
-  for (int ks = 0; ks < K / 8; ++ks) {
-    uint32_t ab[4], as[4];
-    fa_frag_a<true, LDA>(A + ks * 8, g, tq, ab, as);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const uint32_t* r = Bt + (8 * j + g) * LDB + ks * 8 + tq;
-      const uint32_t bb[2] = {r[0], r[4]}, bs[2] = {r[PL], r[PL + 4]};
-      fa_mma3<true, true>(acc[j], ab, as, bb, bs);
-    }
-  }
-}
-
-// out[n] += F R for F the warp's 16 x 8KJ accumulator tiles f (fed back as
-// the A operand, k permuted) and R rows [0, 8KJ) of a row-major tile staged
-// as split planes (fa_frag_b_rows' reads); each group of four n-tiles'
-// products in fresh registers, joined by a rounded add.
-template <int KJ, int NN, int LDR, int PL>
-__device__ __forceinline__ void mma_acc_rows(float (&out)[NN][4], const float (&f)[KJ][4],
-                                             const uint32_t* R, int g, int tq) {
-  constexpr int kG = 4;
-  static_assert(NN % kG == 0, "n-tiles in groups of four");
-  uint32_t fb[KJ][4], fs[KJ][4];
-#pragma unroll
-  for (int k = 0; k < KJ; ++k) fa_frag_acc(f[k], fb[k], fs[k]);
-#pragma unroll
-  for (int n0 = 0; n0 < NN; n0 += kG) {
-    float part[kG][4];
-#pragma unroll
-    for (int u = 0; u < kG; ++u)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) part[u][i] = 0.f;
-#pragma unroll
-    for (int k = 0; k < KJ; ++k)
-#pragma unroll
-      for (int u = 0; u < kG; ++u) {
-        const uint32_t* r = R + (k * 8 + 2 * tq) * LDR + (n0 + u) * 8 + g;
-        const uint32_t bb[2] = {r[0], r[LDR]}, bs[2] = {r[PL], r[PL + LDR]};
-        fa_mma3<true, true>(part[u], fb[k], fs[k], bb, bs);
-      }
-#pragma unroll
-    for (int u = 0; u < kG; ++u)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) out[n0 + u][i] += part[u][i];
-  }
-}
-
 // Sum over the four lanes of a quad (the lanes that share a fragment row).
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// cp.async of rows [r0, r0 + R) of a chunk (row r at src + r * stride,
-// ncol floats) into dst with pitch ld, W columns: zeros past ncol and past
-// row nvalid.  All of a thread's copies are in flight until fa_cp_wait.
-template <int R, int W>
-__device__ __forceinline__ void cp_rows(float* dst, int ld, const float* __restrict__ src,
-                                        size_t stride, int r0, int nvalid, int ncol) {
-  for (int idx = threadIdx.x; idx < R * W; idx += kSsdThreads) {
-    const int r = idx / W, col = idx % W;
-    const bool ok = r0 + r < nvalid && col < ncol;
-    fa_cp4(dst + r * ld + col, ok ? src + (size_t)(r0 + r) * stride + col : src, ok);
-  }
-}
-
-// Ask L1 for rows [r0, r0 + R) of a chunk ahead of their load, one prefetch
-// per 128 bytes.
-template <int R>
-__device__ __forceinline__ void prefetch_rows(const float* __restrict__ src, size_t stride,
-                                              int r0, int nvalid, int ncol) {
-  const int per_row = (ncol + 31) / 32;
-  for (int i = threadIdx.x; i < R * per_row; i += kSsdThreads) {
-    const int r = i / per_row, col = i % per_row * 32;
-    if (r0 + r < nvalid)
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(src + (size_t)(r0 + r) * stride + col));
-  }
-}
-
-// Rows as cp_rows reads them, loaded and split into planes: the big TF32
-// part of each value at dst, the small one PL words on.
-template <int R, int W, int PL>
-__device__ __forceinline__ void load_split(uint32_t* dst, int ld, const float* __restrict__ src,
-                                           size_t stride, int r0, int nvalid, int ncol) {
-#pragma unroll 8
-  for (int idx = threadIdx.x; idx < R * W; idx += kSsdThreads) {
-    const int r = idx / W, col = idx % W;
-    const float v = r0 + r < nvalid && col < ncol ? src[(size_t)(r0 + r) * stride + col] : 0.f;
-    fa_split<true>(v, dst[r * ld + col], dst[PL + r * ld + col]);
-  }
 }
 
 __global__ void __launch_bounds__(kSsdThreads, 1)

@@ -120,18 +120,24 @@ def test_cuda_ssd_kernels_match_plain(shape, a_min):
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_bwd_is_deterministic():
-    """ssd_bwd sums across threads in a fixed order, with no atomics: two
-    calls on the same inputs give bit-identical outputs."""
+@pytest.mark.parametrize("kernel", ["ssd_fwd", "ssd_bwd"])
+def test_cuda_ssd_is_deterministic(kernel):
+    """Both SSD kernels sum across threads in a fixed order, with no
+    atomics: two calls on the same inputs give bit-identical outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     shape, a_min = SSD_CUDA_CASES[0]
     x, dt, A, Bm, Cm, dy = ssd_inputs(shape, a_min)
     chunk = shape[-1]
-    _, st = tref.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
-    first = ssd_k.ssd_bwd(x, dt, A, Bm, Cm, st, dy, chunk=chunk)
-    second = ssd_k.ssd_bwd(x, dt, A, Bm, Cm, st, dy, chunk=chunk)
-    for name, a, b in zip(("dx", "ddt", "dA", "dB", "dC"), first, second):
+    if kernel == "ssd_fwd":
+        names = ("y", "states")
+        call = lambda: ssd_k.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    else:
+        names = ("dx", "ddt", "dA", "dB", "dC")
+        _, st = tref.ssd_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+        call = lambda: ssd_k.ssd_bwd(x, dt, A, Bm, Cm, st, dy, chunk=chunk)
+    first, second = call(), call()
+    for name, a, b in zip(names, first, second):
         assert torch.equal(a, b), name
 
 

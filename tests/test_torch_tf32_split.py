@@ -1,18 +1,19 @@
 """The 3xTF32 split of the tensor-core kernels, emulated on the CPU, and the
 bound that ``chip_smoke.py`` prices it at.
 
-``fa_fwd.cu``, ``fa_bwd_dq.cu``, ``fa_bwd_dkv.cu`` and ``ssd_bwd.cu`` run
-every product on the tensor cores as TF32: an f32 operand x becomes
-big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and a·b is taken
-as big·small + small·big + big·big with f32 sums.  Here cvt.rna is
-emulated by integer arithmetic on the f32 bits, and a product of two TF32
-values is exact in f32, as on the tensor core.  Attention out, lse, dq, dk
-and dv computed so must meet ``chip_smoke.py``'s float32 tolerances
-against a float64 evaluation; single-pass TF32 (big·big alone) must miss
-them.  The SSD backward's chunk algebra, computed so, must meet
-``chip_smoke.SSD_TOL`` the same way, and single-pass TF32 misses it too.
-That pair of facts is why those tolerances hold for the kernels unchanged:
-the route keeps float32 accuracy, the tolerance was not widened to fit it.
+``fa_fwd.cu``, ``fa_bwd_dq.cu``, ``fa_bwd_dkv.cu``, ``ssd_fwd.cu`` and
+``ssd_bwd.cu`` run every product on the tensor cores as TF32: an f32
+operand x becomes big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big),
+and a·b is taken as big·small + small·big + big·big with f32 sums.  Here
+cvt.rna is emulated by integer arithmetic on the f32 bits, and a product
+of two TF32 values is exact in f32, as on the tensor core.  Attention out,
+lse, dq, dk and dv computed so must meet ``chip_smoke.py``'s float32
+tolerances against a float64 evaluation; single-pass TF32 (big·big alone)
+must miss them.  The SSD forward's and backward's chunk algebra, computed
+so, must meet ``chip_smoke.SSD_TOL`` the same way, and single-pass TF32
+misses it too.  That pair of facts is why those tolerances hold for the
+kernels unchanged: the route keeps float32 accuracy, the tolerance was not
+widened to fit it.
 (The tensor core's own accumulation does not round to nearest; the
 kernels keep its runs short, and this emulation sums in f32 with
 rounding.)
@@ -199,6 +200,27 @@ def ssd_chunk_bwd(x, dt, A, Bm, Cm, h_prev, dh, dy, mm):
             "dA": (dla * dt).sum(-1), "dB": lay(dB), "dC": lay(dC)}
 
 
+def ssd_chunk_fwd(x, dt, A, Bm, Cm, h_prev, mm):
+    """One chunk of the SSD scan (``ref.ssd_scan``'s loop body, the algebra
+    of ``ssd_fwd.cu``) with every product through ``mm``: head-major x
+    (H, Q, P), dt (H, Q), A (H,), Bm, Cm (H, Q, N) and the chunk's entry
+    state h_prev (H, N, P).  Returns y in the kernel's (1, Q, H, P) layout
+    and the next chunk's entry state h_new as "states" (1, H, N, P)."""
+    Q = dt.shape[-1]
+    L = torch.cumsum(dt * A[:, None], dim=-1)
+    Ltot = L[:, -1]
+    tri = torch.ones(Q, Q, dtype=torch.bool).tril()
+    decay = torch.exp((L[:, :, None] - L[:, None, :]).masked_fill(
+        ~tri, float("-inf")))
+    xb = x * dt[..., None]
+    y = mm(mm(Cm, Bm.transpose(-1, -2)) * decay, xb) \
+        + mm(Cm, h_prev) * torch.exp(L)[..., None]
+    w = torch.exp(Ltot[:, None] - L)
+    h_new = torch.exp(Ltot)[:, None, None] * h_prev \
+        + mm(Bm.transpose(-1, -2), xb * w[..., None])
+    return {"y": y.transpose(0, 1).unsqueeze(0), "states": h_new.unsqueeze(0)}
+
+
 def _ssd_chunk_inputs(H=4, Q=256, N=128, P=64, seed=0):
     """mamba2-780m's widths (chunk 256, N 128, P 64) at a few heads: A from
     -1 down to -48, dt log-normal around 0.1, B, C ~ N(0, 1/4), x, dy, and
@@ -243,6 +265,27 @@ def test_ssd_bwd_single_pass_tf32_misses():
     want = ssd_chunk_bwd(*(t.double() for t in ins), lambda a, b: a @ b)
     one = ssd_chunk_bwd(*ins, mm_tf32)
     assert _ssd_misses(one, want, *ins[:3])["ddt"] > 0
+
+
+def test_ssd_fwd_3xtf32_meets_ssd_tolerance():
+    """The SSD forward at float32 with its products as 3xTF32 (the route of
+    ssd_fwd.cu) meets SSD_TOL against float64 on y and the next state."""
+    x, dt, A, Bm, Cm, h_prev, _, _ = _ssd_chunk_inputs()
+    ins = (x, dt, A, Bm, Cm, h_prev)
+    want = ssd_chunk_fwd(*(t.double() for t in ins), lambda a, b: a @ b)
+    three = ssd_chunk_fwd(*ins, mm_3xtf32)
+    assert all(torch.isfinite(t).all() for t in three.values())
+    assert _ssd_misses(three, want, x, dt, A) == dict.fromkeys(want, 0)
+
+
+def test_ssd_fwd_single_pass_tf32_misses():
+    """Single-pass TF32 products do not keep the SSD forward at float32
+    accuracy: y misses SSD_TOL."""
+    x, dt, A, Bm, Cm, h_prev, _, _ = _ssd_chunk_inputs()
+    ins = (x, dt, A, Bm, Cm, h_prev)
+    want = ssd_chunk_fwd(*(t.double() for t in ins), lambda a, b: a @ b)
+    one = ssd_chunk_fwd(*ins, mm_tf32)
+    assert _ssd_misses(one, want, x, dt, A)["y"] > 0
 
 
 @pytest.mark.parametrize("name,bound_ms,simt_ms", [
