@@ -30,9 +30,18 @@ exits non-zero:
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
    same with l_split 6): two rounds with the kernels and two with the plain
    path (``sdpa_chunked``, ``ssd_chunked``) from the same state, batches
-   and plans, whose losses must agree; one profiled round; then three
-   rounds of the driver (``repro_torch.launch.train.run_pod``) with the
-   kernels, with every kernel's launches counted per round.
+   and plans, whose losses must agree; one profiled round; then the driver
+   (``repro_torch.launch.train.run_pod``, five rounds of smollm, three of
+   mamba2) with the kernels at ``--window 1`` and ``--window 2`` in turns
+   (1, 2, 2, 1), each run with every
+   kernel's launches counted over the run (rounds x the per-round count)
+   and its peak memory, steady tok/s, host seconds inside ``step()`` per
+   round and the executor's summary; the two windows' histories must be
+   bit-identical.
+5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
+   six rounds at windows 1 and 2: bit-identical histories and final
+   params, and a dropped group must have been retired (gathered from the
+   live state at a boundary) in both runs.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -88,6 +97,7 @@ MAIN_PATHS = {  # arch: its own flags
     "smollm-135m": ["--arch", "smollm-135m", "--l-split", "3"],
     "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "6"],
 }
+DRIVER_ROUNDS = {"smollm-135m": 5, "mamba2-780m": 3}   # per driver run
 
 
 def smi_name_power() -> str:
@@ -530,46 +540,126 @@ def phase_main(torch, arch: str, counters) -> dict:
                   batches[1])
     del state0, batches
 
-    # 4b: the driver, three rounds with the kernels, launches per round
-    counts, walls = [], []
-    t_prev = [time.perf_counter()]
-
-    def reset():
-        for c in counters:
-            c.reset_launches()
-
-    def on_round(r, m):
-        counts.append({k: v for c in counters for k, v in c.launches.items()})
-        reset()
-        now = time.perf_counter()
-        walls.append(now - t_prev[0])
-        t_prev[0] = now
-
-    args.on_round = on_round
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset()
-    t_prev[0] = time.perf_counter()
-    out = train.run_pod(args)
-    peak = torch.cuda.max_memory_allocated()
-    tokens = cfg.global_batch * cfg.seq_len
-    for r, (m, c, w) in enumerate(zip(out["history"], counts, walls)):
-        print(f"[main] driver round {r + 1}: d_loss {m['d_loss']:.6f} "
-              f"s_loss {m['s_loss']:.6f} | {tokens / w:,.0f} tok/s "
-              f"({w:.3f} s) | launches {c}", flush=True)
-        if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
-            raise AssertionError(f"round {r + 1}: non-finite loss {m}")
-        if c != want:
-            raise AssertionError(f"round {r + 1}: launches {c}, want {want}")
-    tok_s = [tokens / w for w in walls]
-    print(f"[main] tok/s per round {[round(t, 1) for t in tok_s]}, median "
-          f"{statistics.median(tok_s):,.1f} | peak memory "
-          f"{peak / 2**30:.2f} GiB | launches per round {per_round} of each "
-          f"of {[k for k, n in want.items() if n]} | phase "
+    # 4b: the driver at windows 1 and 2, in turns (1, 2, 2, 1)
+    rounds = DRIVER_ROUNDS[arch]
+    runs = []
+    for window in (1, 2, 2, 1):
+        run = drive(torch, arch, counters, window, rounds)
+        want_total = {k: n * rounds for k, n in want.items()}
+        for r, m in enumerate(run["history"]):
+            if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
+                raise AssertionError(f"window {window} round {r + 1}: "
+                                     f"non-finite loss {m}")
+        if run["launches"] != want_total:
+            raise AssertionError(f"window {window}: launches "
+                                 f"{run['launches']}, want {want_total} "
+                                 f"({rounds} rounds x {per_round})")
+        if runs and run["history"] != runs[0][1]["history"]:
+            raise AssertionError(f"window {window} differs from window 1: "
+                                 f"{run['history']} vs "
+                                 f"{runs[0][1]['history']}")
+        runs.append((window, run))
+    by = {w: [run for ww, run in runs if ww == w] for w in (1, 2)}
+    steady = {w: [run["steady_tok_s"] for run in by[w]] for w in (1, 2)}
+    peak = {w: max(run["peak_bytes"] for run in by[w]) for w in (1, 2)}
+    print(f"[main] windows 1 and 2 (run in turns 1, 2, 2, 1; {rounds} "
+          f"rounds each): histories bit-identical | steady tok/s window 1 "
+          f"{[round(t, 1) for t in steady[1]]} mean "
+          f"{statistics.mean(steady[1]):,.1f}, window 2 "
+          f"{[round(t, 1) for t in steady[2]]} mean "
+          f"{statistics.mean(steady[2]):,.1f} | peak memory "
+          f"{peak[1] / 2**30:.2f} / {peak[2] / 2**30:.2f} GiB | launches per "
+          f"round {per_round} of each of "
+          f"{[k for k, n in want.items() if n]} | phase "
           f"{time.perf_counter() - t_phase:.0f} s", flush=True)
-    totals = {name: sum(c[name] for c in counts) for name in want}
-    return {"launches": totals, "launches_per_round": counts,
-            "tok_s": tok_s, "peak_bytes": peak}
+    return {"launches": by[2][0]["launches"], "steady_tok_s": steady,
+            "peak_bytes": peak}
+
+
+def drive(torch, arch: str, counters, window: int, rounds: int,
+          extra=(), keep_final: bool = False) -> dict:
+    """One run of the driver (``train.run_pod``) on ``arch``'s main path at
+    ``window``: every kernel's launch count is set to 0 just before it and
+    read just after, and the peak memory is taken over it alone.  Prints
+    the losses, the steady tok/s (rounds 2..N over the time from the first
+    round's completion to the last's, on the card's clock: a drain lags its
+    round by up to window - 1 dispatches), the per-round tok/s, the host
+    seconds per round inside step() apart from planning and building, and
+    the executor's summary.  ``keep_final`` returns the final dev, aux and
+    srv params, copied to the host."""
+    from repro_torch.core.executor import completion_gap_s
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_map
+    args = train.build_parser().parse_args(
+        MAIN_ARGS + MAIN_PATHS[arch] + ["--rounds", str(rounds), "--window",
+                                        str(window), *extra])
+    cfg = train.pod_config(args)
+    tokens = cfg.global_batch * cfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset_launches()
+    t0 = time.perf_counter()
+    out = train.run_pod(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats, xs = out["round_stats"], out["executor"]
+    per_round = [tokens / completion_gap_s(a, b)
+                 for a, b in zip(stats, stats[1:])]
+    tag = f"[drive] {arch} --window {window} {' '.join(extra)}".rstrip()
+    print(f"{tag}: history "
+          f"{[(m['d_loss'], m['s_loss']) for m in out['history']]}")
+    print(f"{tag}: steady {out['steady_tok_s']:,.1f} tok/s (rounds 2-"
+          f"{rounds}, first to last completion) | per round after the first"
+          f" {[round(t, 1) for t in per_round]} | whole run "
+          f"{tokens * rounds / wall:,.1f} tok/s ({wall:.3f} s) | peak memory"
+          f" {peak / 2**30:.2f} GiB | launches {launches}")
+    print(f"{tag}: step() dispatch s per round "
+          f"{[round(s.dispatch_s, 3) for s in stats]} | plan s "
+          f"{[round(s.plan_s, 4) for s in stats]} | build s "
+          f"{[round(s.build_s, 4) for s in stats]}")
+    print(f"{tag}: executor peak_in_flight {xs['peak_in_flight']} "
+          f"host_s_exposed_steady {xs['host_s_exposed_steady']:.6f} "
+          f"hidden_host_frac_steady {xs['hidden_host_frac_steady']:.4f} "
+          f"handle_bytes_peak {xs['handle_bytes_peak']} device_s_per_round "
+          f"{xs['device_s_per_round']:.6f} retention "
+          f"{xs['retention']}", flush=True)
+    final = {k: tree_map(lambda x: x.cpu(), out["state"][k])
+             for k in ("dev", "aux", "srv")} if keep_final else None
+    return {"history": out["history"], "steady_tok_s": out["steady_tok_s"],
+            "peak_bytes": peak, "launches": launches, "executor": xs,
+            "final": final}
+
+
+def phase_churn(torch, counters) -> None:
+    """smollm-135m at full width and full depth (30 layers) under churn
+    (--p-drop 0.3, 6 rounds) at windows 1 and 2: the histories and the
+    final params must be bit-identical, and both runs must have retired a
+    dropped group."""
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    runs = {w: drive(torch, "smollm-135m", counters, w, 6,
+                     extra=("--p-drop", "0.3"), keep_final=True)
+            for w in (1, 2)}
+    same_hist = runs[1]["history"] == runs[2]["history"]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs[1]["final"]), tree_leaves(runs[2]["final"])))
+    retention = {w: runs[w]["executor"]["retention"] for w in (1, 2)}
+    print(f"[churn] smollm-135m full width, 30 layers, --p-drop 0.3, 6 "
+          f"rounds: windows 1 and 2 histories bit-identical {same_hist}, "
+          f"final params bit-identical {same_params}; retention {retention},"
+          f" window 2 handle_bytes_peak "
+          f"{runs[2]['executor']['handle_bytes_peak']}, peak memory "
+          f"{runs[1]['peak_bytes'] / 2**30:.2f} / "
+          f"{runs[2]['peak_bytes'] / 2**30:.2f} GiB | phase "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    if not (same_hist and same_params):
+        raise AssertionError("windows 1 and 2 differ under churn")
+    if not all(r["retired"] for r in retention.values()):
+        raise AssertionError(f"no group was retired under churn: {retention}")
 
 
 def main() -> int:
@@ -588,6 +678,7 @@ def main() -> int:
     print(f"[time] device, build and kernels: {time.perf_counter() - t0:.0f}"
           " s", flush=True)
     paths = {arch: phase_main(torch, arch, (fa, ssd_k)) for arch in MAIN_PATHS}
+    phase_churn(torch, (fa, ssd_k))
     kernels = []
     for name, (source, replaces, arch) in KERNELS.items():
         rec = record[name]["main-srv"]

@@ -35,6 +35,7 @@ from repro_torch.memory.policy import make_eviction_policy
 from .aggregator import staleness_weight
 from .flow_control import FlowController
 from .scheduler import Message, TaskScheduler
+from .staging import to_device
 
 
 @dataclass(frozen=True)
@@ -49,16 +50,19 @@ class RoundPlan:
     restore: tuple = ()      # rejoining groups: scatter retained state back
 
     def batch_fields(self, device) -> dict:
-        """The plan as step batch fields, as tensors on ``device``."""
+        """The plan as step batch fields: the masks and weights as tensors
+        on ``device`` (copied through pinned buffers, so no stream sync),
+        the slot indices as host tensors, which the step reads on the
+        host."""
         bcast = self.bcast_mask if self.bcast_mask is not None else \
             np.ones(self.send_mask.shape[1], np.float32)
-        as_t = lambda x, dt: torch.as_tensor(np.asarray(x), dtype=dt,
-                                             device=device)
-        return {"read_slot": as_t(self.read_slot, torch.int64),
-                "write_slot": as_t(self.write_slot, torch.int64),
-                "send_mask": as_t(self.send_mask, torch.float32),
-                "agg_weight": as_t(self.agg_weight, torch.float32),
-                "bcast_mask": as_t(bcast, torch.float32)}
+        host = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64)
+        return {"read_slot": host(self.read_slot),
+                "write_slot": host(self.write_slot),
+                "send_mask": to_device(self.send_mask, device, torch.float32),
+                "agg_weight": to_device(self.agg_weight, device,
+                                        torch.float32),
+                "bcast_mask": to_device(bcast, device, torch.float32)}
 
 
 class RetentionStore:
@@ -77,6 +81,19 @@ class RetentionStore:
 
     def __contains__(self, g) -> bool:
         return int(g) in self._held
+
+    def __len__(self) -> int:
+        return len(self._held)
+
+    @property
+    def groups(self) -> list[int]:
+        return sorted(self._held)
+
+    def version_of(self, g: int) -> int:
+        return self._held[int(g)]["version"]
+
+    def params_of(self, g: int):
+        return self._held[int(g)]["params"]
 
 
 class ControlPlane:
@@ -258,6 +275,11 @@ class ControlPlane:
     @property
     def live_slots(self) -> int:
         return sum(1 for s in self._slot_groups if s)
+
+    @property
+    def slot_occupancy(self) -> list[list[int]]:
+        """Per-ring-slot live contributions (group ids), slot order."""
+        return [sorted(s) for s in self._slot_groups]
 
     @property
     def consumption(self) -> dict[int, int]:

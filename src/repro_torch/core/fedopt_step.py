@@ -9,13 +9,16 @@ it the device half is a Python loop over the G groups, one autograd graph
 per group on its slice of the group-stacked ``dev``/``aux`` params.  Then
 the server reads its host-scheduled ring slot, the groups' emissions land
 in the written slot (rows of groups without a send grant keep the slot's
-old content), and the server half trains on the slot it read.
+old content), and the server half trains on the slot it read.  The
+slot indices are host values, so the step makes no host sync: the host
+can plan the next round while this one runs (``core/executor``).
 
 State layout is the JAX one: ``dev``/``aux`` leaves ``(G, ...)``, block
 leaves ``(..., n_periods, ...)``, ``act_buf`` leaves ``(ω, ...)``.  The
 step updates ``dev``, ``aux`` and ``act_buf`` in place (the JAX step
 donates its state instead), so a caller that needs the old state keeps a
-copy.  It sets ``torch.backends.cuda.matmul.allow_tf32`` and
+copy (``core/handles``).  It sets
+``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` to False: float32 stays float32.
 """
 from __future__ import annotations
@@ -29,6 +32,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.api import ArchConfig
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim.optimizers import make_optimizer
+
+from .staging import copy_into
 
 
 @dataclass(frozen=True)
@@ -108,9 +113,8 @@ def _empty_act_buf(cfg: FedStepConfig, device) -> dict:
 
 def identity_schedule(cfg: FedStepConfig, device) -> dict:
     """Every group sends every iteration; slot h % ω is consumed, then
-    overwritten."""
-    slots = torch.arange(cfg.H, dtype=torch.int64, device=device) % \
-        max(cfg.omega, 1)
+    overwritten.  The slot indices stay on the host."""
+    slots = torch.arange(cfg.H, dtype=torch.int64) % max(cfg.omega, 1)
     return {"read_slot": slots, "write_slot": slots.clone(),
             "send_mask": torch.ones(cfg.H, cfg.n_groups, dtype=torch.float32,
                                     device=device)}
@@ -133,6 +137,15 @@ def _dequant(qs):
 # The hybrid train step
 # ---------------------------------------------------------------------------
 
+def _host_ints(x, name: str) -> list:
+    """Slot indices as Python ints, from a host value only: reading a
+    tensor on the card would wait for every round in flight."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        raise ValueError(f"{name} must be a host value (a CPU tensor or "
+                         f"numpy), got a tensor on {x.device}")
+    return torch.as_tensor(x).tolist()
+
+
 def _unflatten_like(tree, leaves):
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
@@ -142,11 +155,10 @@ def make_train_step(cfg: FedStepConfig):
     """Returns step(state, batch) -> (state, metrics): one FL round of H
     micro-iterations and the end-of-round aggregation.
 
-    ``batch``: ``tokens``/``labels`` (G, H, b, S) int64, ``read_slot``/
-    ``write_slot`` (H,), ``send_mask`` (H, G), ``agg_weight`` and
-    ``bcast_mask`` (G,), all on the state's device (see
-    ``RoundPlan.batch_fields``).  The slot indices are read on the host
-    once per round.
+    ``batch``: ``tokens``/``labels`` (G, H, b, S) int64, ``send_mask``
+    (H, G), ``agg_weight`` and ``bcast_mask`` (G,) on the state's device,
+    and ``read_slot``/``write_slot`` (H,) as host values — a CPU tensor or
+    numpy — read with no device sync (see ``RoundPlan.batch_fields``).
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -198,8 +210,8 @@ def make_train_step(cfg: FedStepConfig):
         G, H, b = cfg.n_groups, cfg.H, cfg.micro_batch
         dev, aux, ring = state["dev"], state["aux"], state.get("act_buf")
         srv, srv_opt = state["srv"], state["srv_opt"]
-        read_slot = batch["read_slot"].tolist()
-        write_slot = batch["write_slot"].tolist()
+        read_slot = _host_ints(batch["read_slot"], "read_slot")
+        write_slot = _host_ints(batch["write_slot"], "write_slot")
         srv_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                  device=p.device), srv) \
             if cfg.server_accum else None
@@ -256,15 +268,19 @@ def make_train_step(cfg: FedStepConfig):
 # ---------------------------------------------------------------------------
 
 def gather_group_state(state: dict, g: int) -> dict:
-    """Host copies of one group's dev/aux slices for the retention store."""
+    """Host copies of one group's dev/aux slices for the retention store,
+    from the live state.  On the card the copy waits for the rounds
+    already enqueued; the executor calls it at a boundary, before the
+    next round is dispatched, so it reads the previous round's output."""
     take = lambda tree: tree_map(lambda x: x[g].to("cpu", copy=True), tree)
     return {"dev": take(state["dev"]), "aux": take(state["aux"])}
 
 
 def scatter_group_state(state: dict, g: int, retained: dict) -> dict:
     """Write one group's retained dev/aux slices back into the stacked
-    state (rejoin path), in place."""
+    state (rejoin path), in place, through pinned buffers on the card."""
     with torch.no_grad():
         for key in ("dev", "aux"):
-            tree_map(lambda x, v: x[g].copy_(v), state[key], retained[key])
+            tree_map(lambda x, v: copy_into(x[g], v), state[key],
+                     retained[key])
     return state

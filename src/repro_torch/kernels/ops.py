@@ -158,12 +158,15 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
     A: (H,); Bm, Cm: (B, T, G, N) -> y (B, T, H, P).  Differentiable
     (reverse chunk scan).  ``chunk`` is clamped to T, then T is padded to a
     chunk multiple (zero dt ⇒ identity decay, zero input ⇒ no state
-    change), as the JAX ``ops.ssd`` does."""
+    change), as the JAX ``ops.ssd`` does.  The kernels run in float32:
+    every input is cast to it, and y comes back in x's dtype, as the
+    Pallas kernel casts each tile and returns y in x's dtype."""
     T = x.shape[1]
     chunk = min(chunk, T)
     if chunk < 1:
         raise ValueError(f"empty sequence: T={T}")
     pad = (-T) % chunk
-    x, dt, Bm, Cm = (pad_steps(t, pad).contiguous() for t in (x, dt, Bm, Cm))
-    y = _SSD.apply(x, dt, A.contiguous(), Bm, Cm, chunk)
-    return y[:, :T]
+    x32, dt, Bm, Cm = (pad_steps(t.float(), pad).contiguous()
+                       for t in (x, dt, Bm, Cm))
+    y = _SSD.apply(x32, dt, A.float().contiguous(), Bm, Cm, chunk)
+    return y[:, :T].to(x.dtype)

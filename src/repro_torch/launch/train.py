@@ -1,12 +1,14 @@
 """Training driver: the FedOptima pod round on one card.
 
 ``--mode pod`` runs the hybrid round (``core/fedopt_step``) for ``--rounds``
-rounds as a synchronous loop — the JAX driver's ``--window 1`` path, whose
-metrics equal every other window's.  Per round it takes the roster
-(``--p-drop``), plans the round on the host ``ControlPlane``, retires and
-restores dropped groups through the retention store, builds the batch with
-the JAX driver's numpy RNG stream, runs the step, closes the round's
-staleness accounting and prints one ``round N d_loss … s_loss …`` line.
+rounds through the pipelined ``RoundExecutor`` (``core/executor``), with
+``--window`` rounds in flight (default 2, as the JAX driver's; 1 is the
+synchronous loop, and the metrics are the same at every window).  Per round
+the executor takes the roster (``--p-drop``), plans the round on the host
+``ControlPlane``, retires and restores dropped groups through the retention
+store, builds the batch with the JAX driver's numpy RNG stream and
+dispatches the step; each round's ``round N d_loss … s_loss …`` line is
+printed when it drains.
 
 ``--arch`` runs at its smoke reduction unless ``--full`` is given.  The
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
@@ -19,12 +21,11 @@ Examples::
         --l-split 3 --omega 1 --rounds 3
     python -m repro_torch.launch.train --mode pod --full --arch mamba2-780m \\
         --use-kernel --groups-per-shard 4 --batch 8 --H 4 --seq-len 1024 \\
-        --l-split 6 --omega 1 --rounds 3
+        --l-split 6 --omega 1 --rounds 3 --window 1
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
@@ -32,24 +33,25 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core import fedopt_step as F
 from repro_torch.core.control_plane import ControlPlane
+from repro_torch.core.executor import (RoundExecutor, StragglerProfiles,
+                                       completion_gap_s)
+from repro_torch.core.staging import to_device
 from repro_torch.data.synthetic import lm_dataset
 
-#: Flags whose machinery comes with later slices of the port: flag ->
-#: (attribute, the value that means "off", the slice that brings it).
+#: Flags whose machinery comes with later items of ROADMAP.md's queue A:
+#: flag -> (attribute, the value that means "off", the item that brings it).
 LATER = {
-    "--mode sim": ("mode", "pod", "the sim-mode learners (queue A item 9)"),
-    "--window": ("window", 1,
-                 "the pipelined RoundExecutor and round handles (queue A)"),
-    "--pool-cap": ("pool_cap", 0, "the tiered activation store (queue A)"),
-    "--ckpt-dir": ("ckpt_dir", None, "checkpoints (queue A)"),
-    "--faults": ("faults", None, "the fault plane (queue A item 10)"),
-    "--fleet-trace": ("fleet_trace", None, "the fleet plane (item 10)"),
-    "--fleet-tiers": ("fleet_tiers", None, "the fleet plane (item 10)"),
-    "--selection": ("selection", None, "the fleet plane (item 10)"),
-    "--trace": ("trace", None, "the telemetry plane (item 10)"),
-    "--sanitize": ("sanitize", False, "the protocol sanitizer (item 10)"),
-    "--metrics-every": ("metrics_every", 0, "the metrics registry (item 10)"),
-    "--metrics-out": ("metrics_out", None, "the metrics registry (item 10)"),
+    "--mode sim": ("mode", "pod", "A6, the sim-mode learners"),
+    "--pool-cap": ("pool_cap", 0, "A2, the tiered activation store"),
+    "--ckpt-dir": ("ckpt_dir", None, "A3, checkpoints"),
+    "--faults": ("faults", None, "A7, the fault plane"),
+    "--fleet-trace": ("fleet_trace", None, "A7, the fleet plane"),
+    "--fleet-tiers": ("fleet_tiers", None, "A7, the fleet plane"),
+    "--selection": ("selection", None, "A7, the fleet plane"),
+    "--trace": ("trace", None, "A7, the telemetry plane"),
+    "--sanitize": ("sanitize", False, "A7, the protocol sanitizer"),
+    "--metrics-every": ("metrics_every", 0, "A7, the metrics dumps"),
+    "--metrics-out": ("metrics_out", None, "A7, the metrics dumps"),
 }
 
 
@@ -59,7 +61,23 @@ def _refuse_later_slices(args) -> None:
         if value != off:
             raise NotImplementedError(
                 f"{flag}={value!r}: not in the torch port yet; it comes with "
-                f"{later}")
+                f"ROADMAP item {later}")
+
+
+def _pipeline_window(args) -> int:
+    """Resolve the pipeline window with explicit validation: an unset
+    attribute (programmatic bare Namespace) defaults to 2; anything set
+    must be an int >= 1 — ``--window 0`` is an error, not a silent remap
+    to the default."""
+    w = getattr(args, "window", None)
+    if w is None:
+        return 2
+    w = int(w)
+    if w < 1:
+        raise ValueError(
+            f"--window must be >= 1, got {w}: 1 is the synchronous loop, "
+            ">= 2 keeps that many rounds in flight")
+    return w
 
 
 def _group_streams(cfg: F.FedStepConfig, seed: int = 0):
@@ -84,21 +102,10 @@ def _make_batch(cfg: F.FedStepConfig, streams, rng: np.random.Generator,
                 j = idx[h, i]
                 tokens[g, h, i] = streams[g][j:j + S]
                 labels[g, h, i] = streams[g][j + 1:j + S + 1]
-    batch = {"tokens": torch.from_numpy(tokens).to(device),
-             "labels": torch.from_numpy(labels).to(device)}
+    batch = {"tokens": to_device(tokens, device),
+             "labels": to_device(labels, device)}
     batch.update(plan.batch_fields(device))
     return batch
-
-
-def _apply_retention(cplane: ControlPlane, state: dict, plan) -> dict:
-    """Gather dropped groups' dev/aux into the retention store and scatter
-    rejoining groups' retained params back, before the round runs."""
-    for g in plan.retire:
-        cplane.retain_group(g, F.gather_group_state(state, g))
-    for g in plan.restore:
-        state = F.scatter_group_state(state, g,
-                                      cplane.release_group(g)["params"])
-    return state
 
 
 def pod_config(args) -> F.FedStepConfig:
@@ -113,47 +120,75 @@ def pod_config(args) -> F.FedStepConfig:
 
 
 def run_pod(args) -> dict:
-    """Run ``args.rounds`` rounds; returns {"history", "final", "consumed"}.
-    A programmatic caller may set ``args.on_round(r, metrics)``, called
-    after each round with its metrics as floats."""
+    """Run ``args.rounds`` rounds; returns {"history", "final", "executor",
+    "consumed", "steady_tok_s", "round_stats", "state"}.  A programmatic
+    caller may set ``args.on_round(r, metrics)``, called as each round
+    drains with its metrics as floats, and ``args.profiles``, seeded
+    ``StragglerProfiles`` (uniform by default)."""
     _refuse_later_slices(args)
+    window = _pipeline_window(args)
     device = torch.device(args.device)
     cfg = pod_config(args)
     G = cfg.n_groups
-    step = F.make_train_step(cfg)
     cplane = ControlPlane(G, cfg.omega, cfg.H, policy=args.policy,
                           max_delay=args.max_delay)
-    state = F.init_train_state(
-        torch.Generator(device=device).manual_seed(args.seed), cfg)
     streams = _group_streams(cfg, seed=args.seed)
     rng = np.random.default_rng(args.seed)
+    profiles = getattr(args, "profiles", None) or StragglerProfiles(G)
+    executor = RoundExecutor(F.make_train_step(cfg), cplane, window=window,
+                             profiles=profiles, gather=F.gather_group_state,
+                             scatter=F.scatter_group_state)
+
+    def active_fn(r):
+        roster = rng.random(G) >= args.p_drop
+        if not roster.any():
+            roster[rng.integers(0, G)] = True
+        return roster
+
+    def batch_fn(r, plan):
+        return _make_batch(cfg, streams, rng, plan, device)
+
     on_round = getattr(args, "on_round", None)
-    history = []
-    t0 = time.time()
-    for r in range(args.rounds):
-        active = rng.random(G) >= args.p_drop
-        if not active.any():
-            active[rng.integers(0, G)] = True
-        plan = cplane.plan_round(active=active)
-        state = _apply_retention(cplane, state, plan)
-        batch = _make_batch(cfg, streams, rng, plan, device)
-        state, metrics = step(state, batch)
-        cplane.finish_round(active=active)
-        m = {k: float(v) for k, v in metrics.items()}   # waits for the round
-        history.append(m)
+    tokens = cfg.global_batch * cfg.seq_len
+    prev = None
+
+    def on_metrics(r, m, st):
+        nonlocal prev
         if on_round is not None:
             on_round(r, m)
         if (r + 1) % args.log_every == 0:
-            tok_s = cfg.global_batch * cfg.seq_len * args.log_every / \
-                (time.time() - t0)
+            # this round's time, from the previous round's completion (the
+            # first round's: from the start of its planning to its drain)
+            secs = completion_gap_s(prev, st) if prev is not None else \
+                st.plan_s + st.build_s + st.round_wall_s
+            n_active = int(np.sum(np.asarray(st.plan.bcast_mask) > 0.5))
             print(f"round {r+1:4d}  d_loss {m['d_loss']:.4f}  "
-                  f"s_loss {m['s_loss']:.4f}  active {int(active.sum())}/{G}"
-                  f"  {tok_s:,.0f} tok/s", flush=True)
-            t0 = time.time()
+                  f"s_loss {m['s_loss']:.4f}  active {n_active}/{G}"
+                  f"  {tokens / secs:,.0f} tok/s", flush=True)
+        prev = st
+
+    # the init goes straight in: a reference held here would keep the
+    # first round's state alive for the whole run
+    state, history = executor.run(
+        F.init_train_state(
+            torch.Generator(device=device).manual_seed(args.seed), cfg),
+        0, args.rounds, active_fn=active_fn, batch_fn=batch_fn,
+        on_metrics=on_metrics)
+    xs = executor.summary()
+    print(f"checkpoints: flush_saves={xs['checkpoints']['flush_saves']} "
+          f"noflush_saves={xs['checkpoints']['noflush_saves']}  "
+          f"handle_bytes_peak={xs['handle_bytes_peak']}")
+    n = len(executor.stats)
+    steady = tokens * (n - 1) / completion_gap_s(
+        executor.stats[0], executor.stats[-1]) if n > 1 else None
+    if steady is not None:
+        print(f"throughput: {steady:,.0f} tok/s over rounds 2-{n} (first "
+              f"to last round completion), window {window}")
     consumed = [cplane.consumption.get(g, 0) for g in range(G)]
     print(f"contribution balance: consumed={consumed}")
     return {"history": history, "final": history[-1] if history else None,
-            "consumed": consumed}
+            "executor": xs, "consumed": consumed, "steady_tok_s": steady,
+            "round_stats": executor.stats, "state": state}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -191,8 +226,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--p-drop", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
+    p.add_argument("--window", type=int, default=2,
+                   help="pipelined rounds in flight: 1 = synchronous host "
+                        "loop, 2 = the host plans and builds round r+1 "
+                        "while the card runs round r (metric values do "
+                        "not depend on the window)")
     # later slices of the port: refused with NotImplementedError when set
-    p.add_argument("--window", type=int, default=1)
     p.add_argument("--pool-cap", type=int, default=0)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--faults", default=None)

@@ -5,6 +5,10 @@ machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+It also holds the pipelined executor to what only the card shows: its
+handles keep their round across in-place updates, window 2 overlaps host
+work with the card's, and a round's dispatch makes no host sync.
+
 Each test decides inside itself whether a card exists and skips without
 one (the CUDA kernels have no CPU mode).  Tolerances are chip_smoke.py's:
 flash attention f32 forward 1e-4, f32 gradients 5e-4 + 1e-3·|ref| (sums
@@ -14,6 +18,7 @@ cancels two terms up to |A| = 48 times its size, dA sums terms that
 cancel, and float32 rounds the chunk's log-decay |L| ~ 1e3 to ~1e-4).
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -26,7 +31,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd as ssd_k
 from repro_torch.launch import train as ttrain
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import tree_leaves, tree_map
 
 
 CUDA_CASES = [
@@ -175,3 +180,128 @@ def test_cuda_round_kernel_matches_plain(arch, launches, kernel):
     # two rounds of H micro-iterations: G device blocks + the server's
     assert launches[kernel] == 2 * cfg.H * (2 * 1 + 1)
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the pipelined executor and its handles on the card
+# ---------------------------------------------------------------------------
+
+def _sleep_cycles(ms: float) -> int:
+    """``torch.cuda._sleep`` cycles for about ``ms`` milliseconds."""
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return int(10_000_000 * ms / a.elapsed_time(b))
+
+
+@pytest.mark.cuda
+def test_cuda_handle_keeps_its_round_across_in_place_updates():
+    """The clone runs in stream order after round r and before round
+    r+1's in-place update, and the host copy waits on the handle's own
+    events only: it is back while the next round still runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: streams and events")
+    from repro_torch.core.handles import RoundHandle
+    x = torch.zeros(4, 1 << 18, device="cuda")
+    torch.cuda._sleep(_sleep_cycles(50))
+    x.add_(1.0)                                   # round r, still queued
+    h = RoundHandle.capture(0, {"dev": {"w": x}, "aux": {"b": x[:, :8]}},
+                            to_host=True)
+    torch.cuda._sleep(_sleep_cycles(400))         # round r+1 ...
+    x.add_(1.0)                                   # ... updates in place
+    t0 = time.perf_counter()
+    host = h.host_tree()
+    waited = time.perf_counter() - t0
+    assert waited < 0.3, waited                   # not behind round r+1
+    assert torch.equal(host["dev"]["w"], torch.ones(4, 1 << 18))
+    assert torch.equal(h.group_state(2)["dev"]["w"], torch.ones(1 << 18))
+    torch.cuda.synchronize()
+    assert h.ready() and torch.equal(x.cpu(), torch.full((4, 1 << 18), 2.0))
+
+
+@pytest.mark.cuda
+def test_cuda_window2_overlaps_host_work_with_the_card():
+    """Eight rounds of about 100 ms on the card and 40 ms of batch building
+    on the host: window 1 takes about 8 × 140 ms, window 2 about 40 + 8 ×
+    100 ms, because the drain waits on its own round's event, not on the
+    whole stream.  The card's time is more than twice the host's, so each
+    steady drain blocks and the estimator credits the overlap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: overlap with the card")
+    from repro_torch.core.executor import RoundExecutor
+    cycles = _sleep_cycles(100.0)
+
+    def step(state, batch):
+        torch.cuda._sleep(cycles)
+        return state, {"d_loss": state["x"].sum()}
+
+    def batch_fn(r, plan):
+        time.sleep(0.04)
+        return {}
+
+    walls, summaries = {}, {}
+    for window in (1, 2):
+        ex = RoundExecutor(step, tcp.ControlPlane(2, 1, 2), window=window)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = ex.run({"x": torch.ones(4, device="cuda")}, 0, 8,
+                         active_fn=lambda r: np.ones(2, bool),
+                         batch_fn=batch_fn)
+        walls[window] = time.perf_counter() - t0
+        summaries[window] = ex.summary()
+        assert [m["d_loss"] for m in hist] == [4.0] * 8
+    assert walls[2] <= 0.8 * walls[1], walls
+    assert summaries[2]["hidden_host_frac_steady"] > 0.5, summaries[2]
+    assert summaries[2]["peak_in_flight"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_makes_no_host_sync():
+    """One smoke round's plan (with a rejoin, so the retained rows are
+    scattered back), batch build, dispatch, metrics staging and handle
+    capture under ``set_sync_debug_mode("error")``, which raises on a
+    synchronising call; the drain comes after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: host syncs")
+    from repro_torch.core.executor import _stage_metrics
+    from repro_torch.core.handles import RoundHandle
+    cfg = TF.FedStepConfig(arch=treg.smoke_config("smollm-135m"), l_split=1,
+                           n_groups=2, seq_len=64, per_group_batch=4, H=2,
+                           omega=2, use_kernel=True)
+    state = TF.init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    step = TF.make_train_step(cfg)
+    plane = tcp.ControlPlane(2, cfg.omega, cfg.H)
+    streams = ttrain._group_streams(cfg)
+    rng = np.random.default_rng(0)
+    drop = np.array([True, False])
+    plan = plane.plan_round(active=drop)            # outside: warm-up round
+    for g in plan.retire:
+        plane.retain_group(g, TF.gather_group_state(state, g))
+    state, m = step(state, ttrain._make_batch(cfg, streams, rng, plan, "cuda"))
+    plane.finish_round(active=drop)
+    float(m["d_loss"])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan = plane.plan_round(active=np.ones(2, bool))
+        for g in plan.restore:
+            state = TF.scatter_group_state(
+                state, g, plane.release_group(g)["params"])
+        batch = ttrain._make_batch(cfg, streams, rng, plan, "cuda")
+        state, metrics = step(state, batch)
+        values, done = _stage_metrics(metrics)
+        handle = RoundHandle.capture(1, state, keys=("dev", "aux"),
+                                     to_host=True)
+        plane.finish_round()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert plan.restore == (1,)
+    done.synchronize()
+    assert all(np.isfinite(float(v)) for v in values.values())
+    host = handle.host_tree()
+    for a, b in zip(tree_leaves(host), tree_leaves({k: state[k] for k in
+                                                    ("dev", "aux")})):
+        assert torch.equal(a, b.cpu())

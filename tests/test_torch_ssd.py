@@ -213,3 +213,31 @@ def test_wrapper_rejects_bad_inputs(bad):
         return
     with pytest.raises(ValueError):
         ssd_k.ssd_fwd(x, dt, A, Bm, Cm, chunk=12 if bad == "chunk" else 16)
+
+
+def test_mamba_apply_bf16_kernel_matches_jax():
+    """bfloat16 params and input through the SSD op: the op casts to
+    float32 for the kernels and returns y in x's dtype, as the Pallas
+    kernel does.  Tolerance: chip_smoke.py's bf16 rows, 0.03 + 0.03·|ref|."""
+    from repro.configs import registry as jreg
+    from repro_torch.configs import registry as treg
+    mcfg = jreg.smoke_config("mamba2-780m").mamba_cfg()
+    p = jmamba.mamba_init(jax.random.PRNGKey(0), mcfg, dtype=jnp.bfloat16)
+    x = np.random.default_rng(4).standard_normal((2, 20, mcfg.d_model)) \
+        .astype(np.float32)
+    want = jmamba.mamba_apply(p, mcfg, jnp.asarray(x, jnp.bfloat16),
+                              use_kernel=True)
+    to_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(
+        torch.bfloat16).requires_grad_()
+    tp = jax.tree.map(to_t, p)
+    tx = to_t(x)
+    got = tmamba.mamba_apply(tp, treg.smoke_config("mamba2-780m").mamba_cfg(),
+                             tx, use_kernel=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().detach().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2,
+                               rtol=3e-2)
+    torch.sum(got.float()).backward()
+    for t in [tx, *jax.tree.leaves(tp)]:
+        assert t.grad.dtype == torch.bfloat16
+        assert bool(torch.isfinite(t.grad.float()).all())
