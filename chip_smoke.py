@@ -19,7 +19,10 @@ exits non-zero:
    N 128, Q 256, f32), ragged T, T < Q, grouped B/C, the smoke shape and a
    large decay; at B=8 two ``ssd_fwd`` calls and two ``ssd_bwd`` calls
    on the same inputs must each be bit-identical (their sums run in a
-   fixed order).  At the main shapes,
+   fixed order).  Then the head-dim-128 rows of the full-width qwen3-32b
+   and gemma2-27b paths (``WIDE_CASES``): 64:8 heads, 32:16 heads with the
+   logit cap 50, and gemma2's local block at S=6144, where its window of
+   4096 cuts.  At the main shapes and those rows,
    times (CUDA events, median of 30 after warm-up) beside the plain
    version, one PyTorch call for the same function where there is one
    (SDPA) and the card's bound: the least time with the products as 3xTF32
@@ -38,6 +41,15 @@ exits non-zero:
    and its peak memory, steady tok/s, host seconds inside ``step()`` per
    round and the executor's summary; the two windows' histories must be
    bit-identical.
+   4c: then qwen3-32b (qk-norm, untied head) and gemma2-27b (local and
+   global blocks, soft-caps, GeGLU) at every published width, cut in depth
+   (``WIDE_PATHS``: 2 and 4 layers, one period on each side of the split)
+   and run at G=2: two rounds with the kernels and two with the plain path
+   from the same state, batches and plans (losses within 1e-3 relative,
+   params finite), launches per round as reckoned from H, G and the
+   split, one profiled round, and three driver rounds through the
+   ``RoundExecutor`` at window 2 (steady tok/s, device ms per round, peak
+   memory).  The cuts are printed on the path's first line.
 5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
    six rounds at windows 1 and 2: bit-identical histories and final
    params, and a dropped group must have been retired (gathered from the
@@ -98,6 +110,14 @@ MAIN_PATHS = {  # arch: its own flags
     "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "6"],
 }
 DRIVER_ROUNDS = {"smollm-135m": 5, "mamba2-780m": 3}   # per driver run
+# Phase 4c: full width, cut in depth (no depth flag: the script builds the
+# FedStepConfig itself); arch: (layers kept, l_split in periods, batch per
+# group).  G=2, H=4, so the server half's batch is 2 * batch / 4.
+WIDE_ARGS = ["--mode", "pod", "--full", "--groups-per-shard", "2", "--H", "4",
+             "--seq-len", "1024", "--omega", "1", "--use-kernel", "--device",
+             "cuda"]
+WIDE_PATHS = {"qwen3-32b": (2, 1, 8), "gemma2-27b": (4, 1, 4)}
+WIDE_DRIVER_ROUNDS = 3
 
 
 def smi_name_power() -> str:
@@ -165,6 +185,17 @@ CASES = [
     ("bf16-hd32", (2, 256, 256, 8, 2, 32), dict(causal=True, logit_cap=15.0),
      "bfloat16"),
     ("bf16-hd128", (1, 300, 300, 4, 2, 128), dict(causal=True), "bfloat16"),
+]
+# The attention of phase 4c's paths at head dim 128, timed like the main
+# rows: B is the server half's batch there (G * batch / H); gemma2-local is
+# its local block at S=6144, where the window of 4096 cuts (at S=1024 it
+# masks nothing).
+WIDE_CASES = [
+    ("qwen3", (4, 1024, 1024, 64, 8, 128), dict(causal=True), "float32"),
+    ("gemma2", (2, 1024, 1024, 32, 16, 128),
+     dict(causal=True, logit_cap=50.0), "float32"),
+    ("gemma2-local", (1, 6144, 6144, 32, 16, 128),
+     dict(causal=True, window=4096, logit_cap=50.0), "float32"),
 ]
 
 
@@ -257,9 +288,14 @@ def _sdpa_ms(torch, q, k, v, do, opts):
     return fwd_ms, bwd_ms
 
 
+def _ms_text(ms) -> str:
+    return "none" if ms is None else f"{ms:.4f} ms"
+
+
 def phase_kernels(torch, fa, ref) -> dict:
     record = {}
-    for seed, (case, shape, opts, dt) in enumerate(CASES):
+    timed = {c[0] for c in WIDE_CASES}
+    for seed, (case, shape, opts, dt) in enumerate(CASES + WIDE_CASES):
         dtype = getattr(torch, dt)
         q, k, v, do = _inputs(torch, shape, dtype, seed)
         print(f"[kernels] {case}: B,S,Skv,H,Hkv,hd={shape} {opts} {dt}",
@@ -279,7 +315,7 @@ def phase_kernels(torch, fa, ref) -> dict:
                "fa_bwd_dq": _close(torch, "dq", dq, dq_r, *bw_tol),
                "fa_bwd_dkv": max(_close(torch, "dk", dk, dk_r, *bw_tol),
                                  _close(torch, "dv", dv, dv_r, *bw_tol))}
-        if not case.startswith("main"):
+        if not (case.startswith("main") or case in timed):
             continue
         runs = {"fa_fwd": (lambda: fa.fa_fwd(q, k, v, **opts),
                            lambda: ref.fa_fwd(q, k, v, **opts)),
@@ -296,20 +332,24 @@ def phase_kernels(torch, fa, ref) -> dict:
             fa.fa_bwd_dkv(q, k, v, do, lse, d, **opts)
         print(f"[kernels]   backward pair (delta, fa_bwd_dq, fa_bwd_dkv) "
               f"{_median_ms(torch, backward):.4f} ms | SDPA bwd "
-              f"{sdpa_bwd:.4f} ms", flush=True)
+              f"{_ms_text(sdpa_bwd)}", flush=True)
         for name, (kern, plain) in runs.items():
             ms, plain_ms = _median_ms(torch, kern), _median_ms(torch, plain)
             lib = sdpa_fwd if name == "fa_fwd" else sdpa_bwd
             bound_ms, bound_by, simt_ms = bounds[name]
             print(f"[kernels]   {name:10s} {ms:.4f} ms | plain {plain_ms:.4f}"
                   f" ms | SDPA {'fwd' if name == 'fa_fwd' else 'bwd'} "
-                  f"{lib:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{_ms_text(lib)} | bound {bound_ms:.4f} ms ({bound_by}, "
                   f"3xTF32) | CUDA-core bound {simt_ms:.4f} ms", flush=True)
             rec = dict(shape=list(shape), max_abs_err=err[name], ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, bound_simt_ms=simt_ms,
                        library_ms=lib)
             record.setdefault(name, {})[case] = rec
+        # gemma2-local's plain version holds several 4.8 GB score tensors
+        del q, k, v, do, out, lse, out_r, lse_r, dq, dk, dv, dq_r, dk_r, \
+            dv_r, delta, bwd_in, runs
+        torch.cuda.empty_cache()
     return record
 
 
@@ -590,10 +630,13 @@ def drive(torch, arch: str, counters, window: int, rounds: int,
     from repro_torch.core.executor import completion_gap_s
     from repro_torch.launch import train
     from repro_torch.models.common import tree_map
-    args = train.build_parser().parse_args(
-        MAIN_ARGS + MAIN_PATHS[arch] + ["--rounds", str(rounds), "--window",
-                                        str(window), *extra])
-    cfg = train.pod_config(args)
+    flags = ["--rounds", str(rounds), "--window", str(window), *extra]
+    if arch in WIDE_PATHS:
+        args, cfg = wide_setup(arch, flags)
+    else:
+        args = train.build_parser().parse_args(MAIN_ARGS + MAIN_PATHS[arch]
+                                               + flags)
+        cfg = train.pod_config(args)
     tokens = cfg.global_batch * cfg.seq_len
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -601,7 +644,7 @@ def drive(torch, arch: str, counters, window: int, rounds: int,
     for c in counters:
         c.reset_launches()
     t0 = time.perf_counter()
-    out = train.run_pod(args)
+    out = train.run_pod(args, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for c in counters for k, v in c.launches.items()}
@@ -662,6 +705,137 @@ def phase_churn(torch, counters) -> None:
         raise AssertionError(f"no group was retired under churn: {retention}")
 
 
+def wide_setup(arch: str, flags):
+    """(args, cfg) of a phase-4c path: the registry's full config cut to
+    ``WIDE_PATHS``' depth, every width kept."""
+    from repro_torch.launch import train
+    n_layers, l_split, batch = WIDE_PATHS[arch]
+    args = train.build_parser().parse_args(
+        WIDE_ARGS + ["--arch", arch, "--l-split", str(l_split), "--batch",
+                     str(batch), *flags])
+    cfg = train.pod_config(args)
+    return args, dataclasses.replace(cfg,
+                                     arch=cfg.arch.scaled(n_layers=n_layers))
+
+
+def phase_wide(torch, arch: str, counters) -> dict:
+    """A full-width, depth-cut path: kernels vs plain over two rounds from
+    one state (drawn twice from one seed: two copies of the state do not
+    fit beside a round's gradients), launches per round, one profiled
+    round, and three driver rounds at window 2."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core import fedopt_step as F
+    from repro_torch.core.control_plane import ControlPlane
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    args, cfg = wide_setup(arch, ["--rounds", "2"])
+    a, full = cfg.arch, registry.get(arch)
+    dev_layers = cfg.l_split * a.period
+    per_round = cfg.H * (cfg.n_groups * dev_layers + a.n_layers - dev_layers)
+    want = {name: per_round if name.startswith("fa_") else 0
+            for c in counters for name in c.launches}
+    print(f"[wide] {arch} at every published width: d_model {a.d_model}, "
+          f"heads {a.n_heads}:{a.n_kv_heads}, hd {a.hd}, d_ff {a.d_ff} "
+          f"({a.activation}), vocab {a.vocab}, pattern {list(a.pattern)}, "
+          f"qk_norm {a.qk_norm}, attn cap {a.attn_softcap}, final cap "
+          f"{a.final_softcap}, window {a.window}, tied head "
+          f"{a.tie_embeddings} | cuts: depth {full.n_layers} -> "
+          f"{a.n_layers} layers ({dev_layers} on the device side, "
+          f"{a.n_layers - dev_layers} on the server), G={cfg.n_groups} "
+          f"(the other paths: 4), batch {cfg.per_group_batch} per group "
+          f"(micro-batch {cfg.micro_batch}, server batch "
+          f"{cfg.n_groups * cfg.micro_batch}; the other paths: 8) | H={cfg.H}"
+          f", seq {cfg.seq_len}, omega {cfg.omega}, remat {cfg.remat!r}, "
+          f"f32, TF32 off", flush=True)
+
+    def fresh_state():
+        torch.cuda.empty_cache()
+        return F.init_train_state(
+            torch.Generator(device="cuda").manual_seed(args.seed), cfg)
+
+    cplane = ControlPlane(cfg.n_groups, cfg.omega, cfg.H)
+    streams = train._group_streams(cfg, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    batches = []
+    for _ in range(2):
+        plan = cplane.plan_round()
+        batches.append(train._make_batch(cfg, streams, rng, plan, "cuda"))
+        cplane.finish_round()
+    params = lambda st: [x for k in ("dev", "aux", "srv")
+                         for x in tree_leaves(st[k])]
+    losses = {}
+    for use_kernel in (True, False):
+        step = F.make_train_step(dataclasses.replace(cfg,
+                                                     use_kernel=use_kernel))
+        state = fresh_state()
+        if use_kernel:
+            n = sum(x.numel() for x in params(state))
+            print(f"[wide] params: {n:,} ({n * 4 / 1e9:.2f} GB f32) for "
+                  f"G={cfg.n_groups} groups, the aux networks and the "
+                  f"server", flush=True)
+        for c in counters:
+            c.reset_launches()
+        losses[use_kernel] = []
+        for r, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            losses[use_kernel].append(m)
+            print(f"[wide] {'kernel' if use_kernel else 'plain '} round "
+                  f"{r + 1}: d_loss {m['d_loss']!r} s_loss {m['s_loss']!r} "
+                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        launches = {k: v for c in counters for k, v in c.launches.items()}
+        if use_kernel:
+            if launches != {k: 2 * n for k, n in want.items()}:
+                raise AssertionError(f"{arch}: launches over 2 rounds "
+                                     f"{launches}, want 2 x {want}")
+            if not all(bool(torch.isfinite(x).all()) for x in params(state)):
+                raise AssertionError(f"{arch}: non-finite params after the "
+                                     "kernel rounds")
+            kernel_final = [x.cpu() for x in params(state)]   # to the host
+        elif any(launches.values()):
+            raise AssertionError(f"{arch}: the plain path launched {launches}")
+        else:
+            diff = max(float((x - y.to(x.device)).abs().max())
+                       for x, y in zip(params(state), kernel_final))
+        del state, step
+    print(f"[wide] launches per round {per_round} of each fa kernel = H "
+          f"{cfg.H} x (G {cfg.n_groups} x {dev_layers} device layers + "
+          f"{a.n_layers - dev_layers} server layers); the aux block takes "
+          f"none | params after 2 rounds, kernel vs plain: max abs diff "
+          f"{diff:.3e}, all finite True", flush=True)
+    del kernel_final
+    for r, (x, y) in enumerate(zip(losses[True], losses[False])):
+        for key in ("d_loss", "s_loss"):
+            rel = abs(x[key] - y[key]) / abs(y[key])
+            print(f"[wide] round {r + 1} {key}: kernel {x[key]:.6f} plain "
+                  f"{y[key]:.6f} rel diff {rel:.2e} (limit 1e-3)")
+            if not (rel <= 1e-3 and math.isfinite(x[key])):
+                raise AssertionError(f"{arch} round {r + 1} {key}: kernel "
+                                     "and plain paths disagree")
+    profile_round(torch, F.make_train_step(cfg), fresh_state(), batches[1])
+    del batches
+    torch.cuda.empty_cache()
+    run = drive(torch, arch, counters, 2, WIDE_DRIVER_ROUNDS)
+    if not all(math.isfinite(m[k]) for m in run["history"]
+               for k in ("d_loss", "s_loss")):
+        raise AssertionError(f"{arch} driver: non-finite loss")
+    want_total = {k: n * WIDE_DRIVER_ROUNDS for k, n in want.items()}
+    if run["launches"] != want_total:
+        raise AssertionError(f"{arch} driver: launches {run['launches']}, "
+                             f"want {want_total}")
+    print(f"[wide] {arch}: driver window 2, {WIDE_DRIVER_ROUNDS} rounds: "
+          f"steady {run['steady_tok_s']:,.1f} tok/s | device ms per round "
+          f"{run['executor']['device_s_per_round'] * 1e3:.1f} | peak memory "
+          f"{run['peak_bytes'] / 2**30:.2f} GiB | phase "
+          f"{time.perf_counter() - t_phase:.0f} s", flush=True)
+    return {"launches": run["launches"], "per_round": per_round}
+
+
 def main() -> int:
     import torch
 
@@ -678,6 +852,7 @@ def main() -> int:
     print(f"[time] device, build and kernels: {time.perf_counter() - t0:.0f}"
           " s", flush=True)
     paths = {arch: phase_main(torch, arch, (fa, ssd_k)) for arch in MAIN_PATHS}
+    wide = {arch: phase_wide(torch, arch, (fa, ssd_k)) for arch in WIDE_PATHS}
     phase_churn(torch, (fa, ssd_k))
     kernels = []
     for name, (source, replaces, arch) in KERNELS.items():
@@ -693,6 +868,12 @@ def main() -> int:
                         "library_ms": rec["library_ms"],
                         "shape": rec["shape"],
                         "device_shape": record[name]["main-dev"]})
+        if name.startswith("fa_"):
+            kernels[-1]["launches_by_path"] = {
+                arch: paths[arch]["launches"][name],
+                **{w: wide[w]["launches"][name] for w in wide}}
+            kernels[-1]["hd128_rows"] = {c[0]: record[name][c[0]]
+                                         for c in WIDE_CASES}
     print(f"[time] total {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())

@@ -1,18 +1,20 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 The port registers the architectures whose layers it runs:
-``smollm-135m`` and ``mamba2-780m``.  ``smoke_config`` is the JAX
-registry's reduction (same family and pattern, tiny dims, runnable on
-CPU).
+``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``, ``qwen3-32b``
+and ``gemma2-27b``.  ``smoke_config`` is the JAX registry's reduction
+(same family and pattern, tiny dims, runnable on CPU).
 """
 from __future__ import annotations
 
 from repro_torch.models.api import ArchConfig
 
-from . import mamba2_780m, smollm_135m
+from . import (command_r_plus_104b, gemma2_27b, mamba2_780m, qwen3_32b,
+               smollm_135m)
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in (smollm_135m.CONFIG,
-                                                    mamba2_780m.CONFIG)}
+ARCHS: dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (command_r_plus_104b, qwen3_32b,
+                                      smollm_135m, gemma2_27b, mamba2_780m)}
 
 
 def get(name: str) -> ArchConfig:

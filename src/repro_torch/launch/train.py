@@ -22,6 +22,11 @@ Examples::
     python -m repro_torch.launch.train --mode pod --full --arch mamba2-780m \\
         --use-kernel --groups-per-shard 4 --batch 8 --H 4 --seq-len 1024 \\
         --l-split 6 --omega 1 --rounds 3 --window 1
+    python -m repro_torch.launch.train --mode pod --arch gemma2-27b \\
+        --use-kernel --device cpu --batch 4 --H 2 --seq-len 16 --rounds 2
+
+``--arch`` takes ``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``,
+``qwen3-32b`` and ``gemma2-27b``.
 """
 from __future__ import annotations
 
@@ -119,16 +124,18 @@ def pod_config(args) -> F.FedStepConfig:
         use_kernel=args.use_kernel)
 
 
-def run_pod(args) -> dict:
+def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     """Run ``args.rounds`` rounds; returns {"history", "final", "executor",
     "consumed", "steady_tok_s", "round_stats", "state"}.  A programmatic
     caller may set ``args.on_round(r, metrics)``, called as each round
     drains with its metrics as floats, and ``args.profiles``, seeded
-    ``StragglerProfiles`` (uniform by default)."""
+    ``StragglerProfiles`` (uniform by default), and may pass ``cfg`` to run
+    in place of ``pod_config(args)`` (e.g. a full-width arch cut in depth
+    with ``ArchConfig.scaled``)."""
     _refuse_later_slices(args)
     window = _pipeline_window(args)
     device = torch.device(args.device)
-    cfg = pod_config(args)
+    cfg = cfg or pod_config(args)
     G = cfg.n_groups
     cplane = ControlPlane(G, cfg.omega, cfg.H, policy=args.policy,
                           max_delay=args.max_delay)

@@ -4,7 +4,8 @@ One :class:`ArchConfig` describes a decoder LM whose layer stack repeats a
 *period*: ``pattern`` lists (mixer, ffn) pairs and the stack is
 ``pattern * n_periods``.  Per-position params are stacked over periods,
 leaves shaped ``(n_periods, ...)``, as in the JAX package.  The port runs
-the ``("attn", "dense")`` and ``("mamba", "none")`` patterns.
+the ``("attn", "dense")``, ``("local", "dense")`` and ``("mamba", "none")``
+blocks.
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ class ArchConfig:
     vocab: int
     pattern: tuple = (("attn", "dense"),)
     head_dim: int | None = None
+    qk_norm: bool = False
     attn_softcap: float | None = None
+    final_softcap: float | None = None
     window: int | None = None          # sliding-window size for "local" mixers
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
@@ -60,7 +63,7 @@ class ArchConfig:
         return AttentionConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
-            attn_softcap=self.attn_softcap,
+            qk_norm=self.qk_norm, attn_softcap=self.attn_softcap,
             window=self.window if mixer == "local" else None,
             rope_theta=self.rope_theta, chunk_q=self.attn_chunk)
 

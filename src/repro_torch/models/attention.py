@@ -1,4 +1,4 @@
-"""Self-attention with GQA, sliding window and logit soft-capping.
+"""Self-attention with GQA, qk-norm, sliding window and logit soft-capping.
 
 ``attention_apply`` dispatches to the flash-attention kernels
 (``repro_torch.kernels.ops.flash_attention``) when ``use_kernel`` is set,
@@ -12,7 +12,8 @@ from dataclasses import dataclass
 
 import torch
 
-from .common import apply_rope, dense_init, softcap
+from .common import (apply_rope, dense_init, rmsnorm_apply, rmsnorm_init,
+                     softcap)
 
 
 @dataclass(frozen=True)
@@ -21,6 +22,7 @@ class AttentionConfig:
     n_heads: int
     n_kv_heads: int
     head_dim: int | None = None          # default d_model // n_heads
+    qk_norm: bool = False                # Qwen3
     attn_softcap: float | None = None    # Gemma-2 (e.g. 50.0)
     window: int | None = None            # sliding-window size; None = global
     rope_theta: float = 10000.0
@@ -36,21 +38,29 @@ class AttentionConfig:
 def attention_init(gen: torch.Generator, cfg: AttentionConfig, *,
                    dtype=torch.float32) -> dict:
     hd = cfg.hd
-    return {
+    p = {
         "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype=dtype),
         "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype=dtype),
         "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype=dtype),
         "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype=dtype,
                          scale=1.0 / (cfg.n_heads * hd) ** 0.5),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, device=gen.device, dtype=dtype)
+        p["k_norm"] = rmsnorm_init(hd, device=gen.device, dtype=dtype)
+    return p
 
 
 def _project_qkv(params: dict, cfg: AttentionConfig, x):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, Hkv, hd)."""
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, Hkv, hd); with qk-norm,
+    q and k are RMS-normed over hd here, before RoPE."""
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
     k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
     v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q)
+        k = rmsnorm_apply(params["k_norm"], k)
     return q, k, v
 
 

@@ -95,6 +95,12 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation (the exact erf form
+    differs from it by up to ~5e-4)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
 def softcap(logits, cap: float):
     """Gemma-2 style logit soft-capping: cap * tanh(x / cap)."""
     return cap * torch.tanh(logits / cap)

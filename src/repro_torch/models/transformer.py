@@ -1,11 +1,14 @@
-"""Backbone assembly and the FedOptima split API, for the ("attn", "dense")
-and ("mamba", "none") decoder patterns.
+"""Backbone assembly and the FedOptima split API, for decoders built of
+the ("attn", "dense"), ("local", "dense") and ("mamba", "none") blocks:
+global and sliding-window attention (with qk-norm and logit soft-caps where
+the arch sets them) before a dense FFN, and the Mamba2 mixer alone.
 
 The DNN is split at a period boundary ``l_split``.  The device half is
 ``embed + blocks[:l_split]`` plus an auxiliary network (one block of the
 last pattern position's type and a factorized classifier head); the server
-half is ``blocks[l_split:] + final_norm`` and the tied head, trained on
-detached activations.
+half is ``blocks[l_split:] + final_norm`` and the head — the tied
+``embed_out`` or the untied ``lm_head`` — trained on detached activations.
+The head's logits take the arch's ``final_softcap`` before the softmax.
 
 ``remat`` (per period, ``torch.utils.checkpoint`` without reentrancy):
 ``False`` keeps every activation; ``True`` recomputes each period in the
@@ -25,7 +28,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from .api import ArchConfig
 from .attention import attention_apply, attention_init
 from .common import (dense_init, embed_init, rmsnorm_apply, rmsnorm_init,
-                     tree_map)
+                     softcap, tree_map)
 from .mamba import mamba_apply, mamba_init
 from .mlp import mlp_apply, mlp_init
 
@@ -162,13 +165,20 @@ def _chunked_ce(logits_fn, h, labels, mask, s_chunk: int):
 
 
 def chunked_ce_loss(params: dict, cfg: ArchConfig, h, labels, mask=None):
-    """Next-token CE without materialising the full (B, S, V) logits."""
+    """Next-token CE without materialising the full (B, S, V) logits; the
+    arch's ``final_softcap`` caps each chunk's logits before the softmax."""
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
     w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-    return _chunked_ce(lambda hc: hc @ w, h, labels, mask.float(),
-                       cfg.ce_chunk)
+
+    def logits_fn(hc):
+        logits = hc @ w
+        if cfg.final_softcap is not None:
+            logits = softcap(logits, cfg.final_softcap)
+        return logits
+
+    return _chunked_ce(logits_fn, h, labels, mask.float(), cfg.ce_chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,9 @@ It also holds the pipelined executor to what only the card shows: its
 handles keep their round across in-place updates, window 2 overlaps host
 work with the card's, and a round's dispatch makes no host sync.
 
+The attention rows include head dim 128 with a GQA group of 8 (qwen3-32b)
+and with gemma2-27b's logit cap of 50 and a sliding window that cuts.
+
 Each test decides inside itself whether a card exists and skips without
 one (the CUDA kernels have no CPU mode).  Tolerances are chip_smoke.py's:
 flash attention f32 forward 1e-4, f32 gradients 5e-4 + 1e-3·|ref| (sums
@@ -46,6 +49,12 @@ CUDA_CASES = [
     ((2, 256, 256, 8, 2, 32), dict(causal=True, logit_cap=15.0),
      torch.bfloat16),
     ((1, 300, 300, 4, 2, 128), dict(causal=True), torch.bfloat16),
+    # head dim 128 at qwen3-32b's GQA group of 8, and at gemma2-27b's 32:16
+    # heads with its cap of 50 and a window that cuts (gemma2's 4096 masks
+    # nothing below S=4096, so a window of 300 stands for it here)
+    ((1, 1024, 1024, 16, 2, 128), dict(causal=True), torch.float32),
+    ((1, 1024, 1024, 8, 4, 128), dict(causal=True, window=300,
+                                      logit_cap=50.0), torch.float32),
 ]
 
 
@@ -150,7 +159,9 @@ def test_cuda_ssd_is_deterministic(kernel):
 @pytest.mark.parametrize("arch,launches,kernel", [
     ("smollm-135m", fa.launches, "fa_fwd"),
     ("mamba2-780m", ssd_k.launches, "ssd_fwd"),
-], ids=["smollm-135m", "mamba2-780m"])
+    ("qwen3-32b", fa.launches, "fa_fwd"),
+    ("gemma2-27b", fa.launches, "fa_fwd"),
+], ids=["smollm-135m", "mamba2-780m", "qwen3-32b", "gemma2-27b"])
 def test_cuda_round_kernel_matches_plain(arch, launches, kernel):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -177,8 +188,11 @@ def test_cuda_round_kernel_matches_plain(arch, launches, kernel):
         for batch in batches:
             state, m = step(state, batch)
             losses[uk] += [float(m["d_loss"]), float(m["s_loss"])]
-    # two rounds of H micro-iterations: G device blocks + the server's
-    assert launches[kernel] == 2 * cfg.H * (2 * 1 + 1)
+    # two rounds of H micro-iterations: G groups' device layers + the
+    # server's (gemma2's period is 2 layers, so l_split 1 is 2 layers)
+    dev_layers = cfg.l_split * cfg.arch.period
+    assert launches[kernel] == 2 * cfg.H * (
+        2 * dev_layers + cfg.arch.n_layers - dev_layers)
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)
 
 

@@ -1,6 +1,8 @@
 """The torch port's model functions against the JAX package's, on the same
 params (converted from the JAX init) and the same numpy inputs, for smoke
-smollm-135m and smoke mamba2-780m: attention, the MLP, the Mamba2 block,
+smollm-135m, mamba2-780m, qwen3-32b and gemma2-27b: attention (with
+qk-norm, and with soft-cap and sliding window), the MLPs (SwiGLU, GeGLU,
+GELU), the Mamba2 block, the capped CE over the tied and the untied head,
 and the two halves' losses with their gradients, each with the kernel ops
 (flash attention, SSD) on and off.  Tolerance: the
 reference's own gradient tolerance, 1e-4 (``tests/test_kernel_grads.py``
@@ -32,12 +34,19 @@ from repro_torch.models.common import tree_map
 TOL = 1e-4
 ARCH = "smollm-135m"
 MAMBA = "mamba2-780m"
+QWEN3 = "qwen3-32b"            # qk-norm, untied head
+GEMMA2 = "gemma2-27b"          # local + global, soft-caps, GeGLU
+ALL_ARCHS = (ARCH, MAMBA, "command-r-plus-104b", QWEN3, GEMMA2)
 B, S = 2, 16
 # (arch, use_kernel); the smollm cases keep their ids
 ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
                pytest.param(ARCH, True, id="True"),
                pytest.param(MAMBA, False, id="mamba2-False"),
-               pytest.param(MAMBA, True, id="mamba2-True")]
+               pytest.param(MAMBA, True, id="mamba2-True"),
+               pytest.param(QWEN3, False, id="qwen3-False"),
+               pytest.param(QWEN3, True, id="qwen3-True"),
+               pytest.param(GEMMA2, False, id="gemma2-False"),
+               pytest.param(GEMMA2, True, id="gemma2-True")]
 
 
 def _close(got, want, tol=TOL):
@@ -69,7 +78,8 @@ def _leaves_grad(tree):
 
 
 def test_smoke_and_full_configs_match_jax():
-    for arch in (ARCH, MAMBA):
+    assert set(treg.ARCHS) == set(ALL_ARCHS)
+    for arch in ALL_ARCHS:
         for name in ("full", "smoke"):
             j = jreg.get(arch) if name == "full" else jreg.smoke_config(arch)
             t = treg.get(arch) if name == "full" else treg.smoke_config(arch)
@@ -77,6 +87,12 @@ def test_smoke_and_full_configs_match_jax():
                 assert getattr(t, f.name) == getattr(j, f.name), \
                     (arch, name, f.name)
             assert (t.n_periods, t.hd) == (j.n_periods, j.hd)
+            for mixer in ("attn", "local"):
+                ta = dataclasses.asdict(t.attn_cfg(mixer))
+                ja = dataclasses.asdict(j.attn_cfg(mixer))
+                assert ta == {k: ja[k] for k in ta}, (arch, name, mixer)
+            assert dataclasses.asdict(t.mlp_cfg()) == \
+                dataclasses.asdict(j.mlp_cfg())
             if t.ssm_state:
                 assert dataclasses.asdict(t.mamba_cfg()) == \
                     dataclasses.asdict(j.mamba_cfg())
@@ -94,6 +110,43 @@ def test_attention_apply_matches_jax(setup, use_kernel):
                                 torch.from_numpy(setup["acts"]),
                                 use_kernel=use_kernel)
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch,mixer", [(QWEN3, "attn"), (GEMMA2, "local")],
+                         ids=["qwen3-qk_norm", "gemma2-local-cap-window"])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_attention_variants_match_jax(arch, mixer, use_kernel):
+    """qk-norm (smoke qwen3: q and k RMS-normed over hd before RoPE) and
+    the soft-cap with a sliding window (smoke gemma2's local block: cap
+    50, window 8 at S = 16, so the window cuts), with their gradients."""
+    st = _setup(arch)
+    cfg = st["cfg"]
+    pos = [m for m, _ in cfg.pattern].index(mixer)
+    p = jax.tree.map(lambda x: x[0], st["full"]["blocks"][pos]["mixer"])
+    if mixer == "attn":
+        assert {"q_norm", "k_norm"} <= set(p)
+    else:
+        assert cfg.attn_cfg(mixer).window < S
+    # x2 scales the local block's logits by 4, so that the cap of 50 moves
+    # the output by ~2e-2 (at x1 by ~1e-3); the loss is linear in y, so
+    # its gradients are as well conditioned as y itself
+    x = st["acts"] * (1.0 if mixer == "attn" else 2.0)
+    r = np.random.default_rng(7).standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, x):
+        y = jattn.attention_apply(p, cfg.attn_cfg(mixer), x,
+                                  use_kernel=use_kernel)
+        return jax.numpy.sum(y * r), y
+    (_, want), want_g = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(p, x)
+    tp = _leaves_grad(state_from_numpy(p, "cpu"))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = tattn.attention_apply(tp, treg.smoke_config(arch).attn_cfg(mixer),
+                                tx, use_kernel=use_kernel)
+    torch.sum(got * torch.from_numpy(r)).backward()
+    _close(got.detach().numpy(), want)
+    _close(state_to_numpy((tree_map(lambda t: t.grad, tp), tx.grad)),
+           want_g)
 
 
 def test_sdpa_reference_and_chunked_match_jax():
@@ -142,6 +195,105 @@ def test_mlp_apply_matches_jax(setup):
                          treg.smoke_config(ARCH).mlp_cfg(),
                          torch.from_numpy(setup["acts"]))
     _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("activation", ["geglu", "gelu"])
+def test_mlp_activations_match_jax(activation):
+    """GeGLU (gelu on the gate, gemma2) and the non-gated GELU FFN (no
+    w_gate), with gradients; gelu is jax.nn.gelu's tanh form."""
+    jcfg = jmlp.MlpConfig(d_model=64, d_ff=96, activation=activation)
+    tcfg = tmlp.MlpConfig(d_model=64, d_ff=96, activation=activation)
+    assert jreg.smoke_config(GEMMA2).mlp_cfg() == \
+        jmlp.MlpConfig(64, 96, "geglu")
+    p = jax.tree.map(np.asarray, jmlp.mlp_init(jax.random.PRNGKey(2), jcfg))
+    assert ("w_gate" in p) == (activation == "geglu")
+    x = np.random.default_rng(5).standard_normal((B, S, 64)) \
+        .astype(np.float32) * 2.0
+
+    def jloss(p, x):
+        y = jmlp.mlp_apply(p, jcfg, x)
+        return jax.numpy.sum(jax.numpy.sin(y)), y
+    (_, want), want_g = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(p, x)
+    tp = _leaves_grad(state_from_numpy(p, "cpu"))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = tmlp.mlp_apply(tp, tcfg, tx)
+    torch.sum(torch.sin(got)).backward()
+    _close(got.detach().numpy(), want)
+    _close(state_to_numpy((tree_map(lambda t: t.grad, tp), tx.grad)),
+           want_g)
+    assert set(tmlp.mlp_init(torch.Generator().manual_seed(0), tcfg)) == \
+        set(p)
+
+
+@pytest.mark.parametrize("tie", [True, False], ids=["tied", "untied"])
+@pytest.mark.parametrize("cap", [30.0, 0.5])
+def test_chunked_ce_loss_final_softcap_matches_jax(tie, cap):
+    """gemma2's final soft-cap on each CE chunk's logits, before the
+    softmax, for the tied head (embed.T) and the untied lm_head, with the
+    gradients of the hidden states and the head.  Cap 30 is gemma2's own;
+    at smoke widths its logits stay far below it, so cap 0.5 makes tanh
+    bend them.  S = 16 over ce_chunk 6 gives two chunks and a remainder."""
+    jcfg = jreg.smoke_config(GEMMA2).scaled(tie_embeddings=tie,
+                                            final_softcap=cap, ce_chunk=6)
+    tcfg = treg.smoke_config(GEMMA2).scaled(tie_embeddings=tie,
+                                            final_softcap=cap, ce_chunk=6)
+    rng = np.random.default_rng(6)
+    key = "embed" if tie else "lm_head"
+    shape = (jcfg.vocab, 64) if tie else (64, jcfg.vocab)
+    head = {key: rng.standard_normal(shape).astype(np.float32)}
+    h = rng.standard_normal((B, S, 64)).astype(np.float32)
+    labels = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    mask = (rng.random((B, S)) < 0.8).astype(np.float32)
+    want, want_g = jax.jit(jax.value_and_grad(
+        lambda p, h: jtfm.chunked_ce_loss(p, jcfg, h, labels, mask),
+        argnums=(0, 1)))(head, h)
+    tp = _leaves_grad(state_from_numpy(head, "cpu"))
+    th = torch.from_numpy(h).requires_grad_()
+    loss = ttfm.chunked_ce_loss(tp, tcfg, th, torch.from_numpy(labels).long(),
+                                torch.from_numpy(mask))
+    loss.backward()
+    _close(loss.item(), want)
+    _close(state_to_numpy((tree_map(lambda t: t.grad, tp), th.grad)),
+           want_g)
+    uncapped = ttfm.chunked_ce_loss(
+        tp, tcfg.scaled(final_softcap=None), th,
+        torch.from_numpy(labels).long(), torch.from_numpy(mask))
+    if cap < 1:                          # the cap really bends the logits
+        assert abs(uncapped.item() - loss.item()) > 1.0
+
+
+@pytest.mark.parametrize("arch", ["command-r-plus-104b", QWEN3, GEMMA2])
+def test_convert_goes_across_by_key(arch):
+    """The JAX init converted to the port holds the same leaves under the
+    same keys (q_norm, k_norm, lm_head included), and the port's own init
+    has the same key set and shapes.  JAX orders dict keys sorted and the
+    port keeps insertion order, so both are compared by key path."""
+    def by_path(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key in tree
+                    for k, v in by_path(tree[key], f"{prefix}/{key}").items()}
+        if isinstance(tree, (list, tuple)):
+            return {k: v for i, x in enumerate(tree)
+                    for k, v in by_path(x, f"{prefix}/{i}").items()}
+        return {prefix: np.asarray(tree)}
+    st = _setup(arch)
+    want = by_path(st["full"])
+    got = by_path(state_to_numpy(state_from_numpy(st["full"], "cpu")))
+    mine = by_path(state_to_numpy(ttfm.init_params(
+        torch.Generator().manual_seed(0), treg.smoke_config(arch))))
+    assert set(got) == set(want) == set(mine)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert mine[k].shape == want[k].shape, k
+    cfg = st["cfg"]
+    assert ("/lm_head" in want) == (not cfg.tie_embeddings)
+    assert any(k.endswith("/q_norm/scale") for k in want) == cfg.qk_norm
+    dev, srv = ttfm.split_params(state_from_numpy(st["full"], "cpu"),
+                                 treg.smoke_config(arch), 1)
+    jdev, jsrv = jtfm.split_params(st["full"], cfg, 1)
+    assert set(srv) == set(jsrv) and set(dev) == set(jdev)
+    _close(state_to_numpy((dev, srv)), (jdev, jsrv), tol=0)
 
 
 @pytest.mark.parametrize("arch,use_kernel", ARCH_KERNEL)

@@ -7,9 +7,10 @@ every state leaf after every round, at 1e-4 (the reference's GTOL).  The
 JAX step is built on a (1, 1) mesh with Auto axes: the repo's debug mesh
 has Explicit axes under jax 0.9, on which the reference step does not
 build.  Round 2 drops group 1 and round 3 restores it, so retention and
-non-uniform staleness weights run too.  Smoke smollm-135m and smoke
-mamba2-780m both run, each with its kernel op (flash attention, SSD) on
-and off.
+non-uniform staleness weights run too.  Smoke smollm-135m, mamba2-780m,
+qwen3-32b (qk-norm, the untied lm_head on the server) and gemma2-27b
+(local and global blocks, soft-caps, GeGLU) run with their kernel op
+(flash attention, SSD) on and off, and command-r-plus-104b with it off.
 """
 import dataclasses
 
@@ -62,8 +63,13 @@ def _assert_plans_equal(pt, pj):
     ("smollm-135m", False, dict(server_opt="adamw")),
     ("smollm-135m", False, dict(remat=True)),
     ("smollm-135m", False, dict(remat=False)),
+    ("qwen3-32b", False, {}), ("qwen3-32b", True, {}),
+    ("gemma2-27b", False, {}), ("gemma2-27b", True, {}),
+    ("command-r-plus-104b", False, {}),
 ], ids=["plain", "kernel", "accum-nopipe", "mamba2-plain", "mamba2-kernel",
-        "agg-compress", "adamw", "remat-True", "remat-False"])
+        "agg-compress", "adamw", "remat-True", "remat-False", "qwen3-plain",
+        "qwen3-kernel", "gemma2-plain", "gemma2-kernel",
+        "command-r-plus-plain"])
 def test_round_matches_jax(arch, use_kernel, opts):
     kw = dict(l_split=1, n_groups=2, seq_len=16, per_group_batch=4, H=2,
               omega=2, use_kernel=use_kernel, **opts)
@@ -103,6 +109,9 @@ def test_round_matches_jax(arch, use_kernel, opts):
                {k: float(v) for k, v in jm.items()}, f"round {r} metrics")
         _close(state_to_numpy(tstate), jax.tree.map(np.asarray, jstate),
                f"round {r} state")
+    # an untied head lives on the server only: aggregation never sees it
+    assert ("lm_head" in tstate["srv"]) == (not tcfg.arch.tie_embeddings)
+    assert "lm_head" not in tstate["dev"]
 
 
 def _embed_out_grads(srv, arch, jarch, acts, labels):
@@ -303,9 +312,19 @@ def test_driver_runs_mamba2(capsys):
                for k in ("d_loss", "s_loss"))
 
 
+@pytest.mark.parametrize("arch", ["qwen3-32b", "gemma2-27b",
+                                  "command-r-plus-104b"])
+def test_driver_runs_dense_attention_archs(arch):
+    out = ttrain.main(SMOKE_ARGS + ["--rounds", "2", "--arch", arch,
+                                    "--use-kernel"])
+    assert len(out["history"]) == 2
+    assert all(np.isfinite(m[k]) for m in out["history"]
+               for k in ("d_loss", "s_loss"))
+
+
 def test_driver_refuses_other_archs():
     with pytest.raises(KeyError):
-        ttrain.main(SMOKE_ARGS + ["--rounds", "1", "--arch", "gemma2-27b"])
+        ttrain.main(SMOKE_ARGS + ["--rounds", "1", "--arch", "whisper-tiny"])
 
 
 def test_scheduler_and_flow_control_match_jax():
