@@ -20,9 +20,11 @@ exits non-zero:
    large decay; at B=8 two ``ssd_fwd`` calls and two ``ssd_bwd`` calls
    on the same inputs must each be bit-identical (their sums run in a
    fixed order).  Then the head-dim-128 rows of the full-width qwen3-32b
-   and gemma2-27b paths (``WIDE_CASES``): 64:8 heads, 32:16 heads with the
-   logit cap 50, and gemma2's local block at S=6144, where its window of
-   4096 cuts.  At the main shapes and those rows,
+   and gemma2-27b paths (``WIDE_CASES``), at every shape those paths give
+   the kernels (server and device halves): 64:8 heads, 32:16 heads with the
+   logit cap 50, gemma2's local blocks (window 4096) at S=1024, and at
+   S=6144, where the window cuts.  At the main shapes and the rows in
+   ``WIDE_TIMED``,
    times (CUDA events, median of 30 after warm-up) beside the plain
    version, one PyTorch call for the same function where there is one
    (SDPA) and the card's bound: the least time with the products as 3xTF32
@@ -33,7 +35,9 @@ exits non-zero:
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
    same with l_split 6): two rounds with the kernels and two with the plain
    path (``sdpa_chunked``, ``ssd_chunked``) from the same state, batches
-   and plans, whose losses must agree; one profiled round; then the driver
+   and plans: the kernels launch as reckoned from H, G and the split and
+   the plain path never, losses within 1e-3 relative, params within
+   ``PARAMS_TOL`` and finite; one profiled round; then the driver
    (``repro_torch.launch.train.run_pod``, five rounds of smollm, three of
    mamba2) with the kernels at ``--window 1`` and ``--window 2`` in turns
    (1, 2, 2, 1), each run with every
@@ -44,10 +48,8 @@ exits non-zero:
    4c: then qwen3-32b (qk-norm, untied head) and gemma2-27b (local and
    global blocks, soft-caps, GeGLU) at every published width, cut in depth
    (``WIDE_PATHS``: 2 and 4 layers, one period on each side of the split)
-   and run at G=2: two rounds with the kernels and two with the plain path
-   from the same state, batches and plans (losses within 1e-3 relative,
-   params finite), launches per round as reckoned from H, G and the
-   split, one profiled round, and three driver rounds through the
+   and run at G=2: the same kernels-vs-plain check and profiled round,
+   and three driver rounds through the
    ``RoundExecutor`` at window 2 (steady tok/s, device ms per round, peak
    memory).  The cuts are printed on the path's first line.
 5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
@@ -118,6 +120,11 @@ WIDE_ARGS = ["--mode", "pod", "--full", "--groups-per-shard", "2", "--H", "4",
              "cuda"]
 WIDE_PATHS = {"qwen3-32b": (2, 1, 8), "gemma2-27b": (4, 1, 4)}
 WIDE_DRIVER_ROUNDS = 3
+# Params after two rounds, kernels vs plain: max |difference| (phase 4).
+# Each of the four paths reads 2.384e-07 on an H100 (one float32 ulp at
+# |p| in [2, 4)); a wrong kernel moves params by lr_d (0.05) times its
+# gradient's error.
+PARAMS_TOL = 1e-5
 
 
 def smi_name_power() -> str:
@@ -186,17 +193,27 @@ CASES = [
      "bfloat16"),
     ("bf16-hd128", (1, 300, 300, 4, 2, 128), dict(causal=True), "bfloat16"),
 ]
-# The attention of phase 4c's paths at head dim 128, timed like the main
-# rows: B is the server half's batch there (G * batch / H); gemma2-local is
-# its local block at S=6144, where the window of 4096 cuts (at S=1024 it
-# masks nothing).
+# The attention of phase 4c's paths at head dim 128.  Each shape the paths
+# give the kernels: the server half's batch (G * batch / H) and the device
+# half's micro-batch (batch / H, the "-dev" rows), and gemma2's local blocks
+# (window 4096, which masks nothing at S=1024); and gemma2-local at S=6144,
+# where the window cuts.  The rows in WIDE_TIMED are timed like the main
+# rows.
 WIDE_CASES = [
     ("qwen3", (4, 1024, 1024, 64, 8, 128), dict(causal=True), "float32"),
     ("gemma2", (2, 1024, 1024, 32, 16, 128),
      dict(causal=True, logit_cap=50.0), "float32"),
     ("gemma2-local", (1, 6144, 6144, 32, 16, 128),
      dict(causal=True, window=4096, logit_cap=50.0), "float32"),
+    ("qwen3-dev", (2, 1024, 1024, 64, 8, 128), dict(causal=True), "float32"),
+    ("gemma2-dev", (1, 1024, 1024, 32, 16, 128),
+     dict(causal=True, logit_cap=50.0), "float32"),
+    ("gemma2-local-srv", (2, 1024, 1024, 32, 16, 128),
+     dict(causal=True, window=4096, logit_cap=50.0), "float32"),
+    ("gemma2-local-dev", (1, 1024, 1024, 32, 16, 128),
+     dict(causal=True, window=4096, logit_cap=50.0), "float32"),
 ]
+WIDE_TIMED = ("qwen3", "gemma2", "gemma2-local")
 
 
 def _inputs(torch, shape, dtype, seed):
@@ -294,7 +311,6 @@ def _ms_text(ms) -> str:
 
 def phase_kernels(torch, fa, ref) -> dict:
     record = {}
-    timed = {c[0] for c in WIDE_CASES}
     for seed, (case, shape, opts, dt) in enumerate(CASES + WIDE_CASES):
         dtype = getattr(torch, dt)
         q, k, v, do = _inputs(torch, shape, dtype, seed)
@@ -315,7 +331,7 @@ def phase_kernels(torch, fa, ref) -> dict:
                "fa_bwd_dq": _close(torch, "dq", dq, dq_r, *bw_tol),
                "fa_bwd_dkv": max(_close(torch, "dk", dk, dk_r, *bw_tol),
                                  _close(torch, "dv", dv, dv_r, *bw_tol))}
-        if not (case.startswith("main") or case in timed):
+        if not (case.startswith("main") or case in WIDE_TIMED):
             continue
         runs = {"fa_fwd": (lambda: fa.fa_fwd(q, k, v, **opts),
                            lambda: ref.fa_fwd(q, k, v, **opts)),
@@ -510,31 +526,57 @@ def _describe(cfg) -> str:
             f"{cfg.l_split}, omega {cfg.omega}, remat {cfg.remat!r}")
 
 
-def phase_main(torch, arch: str, counters) -> dict:
-    """One main path: kernels vs plain, a profiled round, and the driver.
-    ``counters`` are the kernel modules whose ``launches`` the driver's
-    rounds read; this path's kernels must each launch once per block per
-    micro-iteration, every other kernel never."""
+def main_setup(arch: str, flags):
+    """(args, cfg) of a main path: its flags, full width and depth."""
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(MAIN_ARGS + MAIN_PATHS[arch]
+                                           + list(flags))
+    return args, train.pod_config(args)
+
+
+def wide_setup(arch: str, flags):
+    """(args, cfg) of a phase-4c path: the registry's full config cut to
+    ``WIDE_PATHS``' depth, every width kept."""
+    from repro_torch.launch import train
+    n_layers, l_split, batch = WIDE_PATHS[arch]
+    args = train.build_parser().parse_args(
+        WIDE_ARGS + ["--arch", arch, "--l-split", str(l_split), "--batch",
+                     str(batch), *flags])
+    cfg = train.pod_config(args)
+    return args, dataclasses.replace(cfg,
+                                     arch=cfg.arch.scaled(n_layers=n_layers))
+
+
+def launches_per_round(cfg, counters) -> tuple[int, dict]:
+    """(n, want): each of the path's kernels launches n times a round, once
+    per block per micro-iteration (H x (G x device blocks + server
+    blocks); the aux block never takes them), and every other kernel never."""
+    dev_layers = cfg.l_split * cfg.arch.period
+    n = cfg.H * (cfg.n_groups * dev_layers + cfg.arch.n_layers - dev_layers)
+    prefix = "ssd_" if cfg.arch.pattern[0][0] == "mamba" else "fa_"
+    return n, {name: n if name.startswith(prefix) else 0
+               for c in counters for name in c.launches}
+
+
+def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
+    """Two rounds with the kernels and two with the plain path from the same
+    state, batches and plans: the kernels launch ``want`` times a round and
+    the plain path never, the losses agree within 1e-3 relative and the
+    params within PARAMS_TOL and are finite.  Then one profiled round.  The
+    state is drawn from the seed for each run (two copies of a full-width
+    state do not fit beside a round's gradients)."""
     import numpy as np
 
     from repro_torch.core import fedopt_step as F
     from repro_torch.core.control_plane import ControlPlane
     from repro_torch.launch import train
-    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.common import tree_leaves
 
-    t_phase = time.perf_counter()
-    args = train.build_parser().parse_args(MAIN_ARGS + MAIN_PATHS[arch] +
-                                           ["--rounds", "3"])
-    cfg = train.pod_config(args)
-    print(f"[main] {_describe(cfg)}", flush=True)
-    per_round = cfg.H * (cfg.n_groups * cfg.l_split
-                         + cfg.arch.n_layers - cfg.l_split)
-    want = {name: per_round if KERNELS[name][2] == arch else 0
-            for c in counters for name in c.launches}
+    def fresh_state():
+        torch.cuda.empty_cache()
+        return F.init_train_state(
+            torch.Generator(device="cuda").manual_seed(args.seed), cfg)
 
-    # 4a: kernels vs the plain path, same state, batches and plans
-    state0 = F.init_train_state(
-        torch.Generator(device="cuda").manual_seed(args.seed), cfg)
     cplane = ControlPlane(cfg.n_groups, cfg.omega, cfg.H)
     streams = train._group_streams(cfg, seed=args.seed)
     rng = np.random.default_rng(args.seed)
@@ -543,48 +585,81 @@ def phase_main(torch, arch: str, counters) -> dict:
         plan = cplane.plan_round()
         batches.append(train._make_batch(cfg, streams, rng, plan, "cuda"))
         cplane.finish_round()
-    losses, finals = {}, {}
+    params = lambda st: [x for k in ("dev", "aux", "srv")
+                         for x in tree_leaves(st[k])]
+    losses = {}
     for use_kernel in (True, False):
         step = F.make_train_step(dataclasses.replace(cfg,
                                                      use_kernel=use_kernel))
-        state = tree_map(torch.clone, state0)
+        state = fresh_state()
+        if use_kernel:
+            n = sum(x.numel() for x in params(state))
+            print(f"{tag} params: {n:,} ({n * 4 / 1e9:.2f} GB f32) for "
+                  f"G={cfg.n_groups} groups, the aux networks and the "
+                  f"server", flush=True)
+        for c in counters:
+            c.reset_launches()
         losses[use_kernel] = []
         for r, batch in enumerate(batches):
             t0 = time.perf_counter()
             state, m = step(state, batch)
             m = {k: float(v) for k, v in m.items()}
             losses[use_kernel].append(m)
-            print(f"[main] {'kernel' if use_kernel else 'plain '} round "
+            print(f"{tag} {'kernel' if use_kernel else 'plain '} round "
                   f"{r + 1}: d_loss {m['d_loss']!r} s_loss {m['s_loss']!r} "
                   f"({time.perf_counter() - t0:.2f} s)", flush=True)
-        finals[use_kernel] = {k: state[k] for k in ("dev", "aux", "srv")}
+        launches = {k: v for c in counters for k, v in c.launches.items()}
+        if use_kernel:
+            if launches != {k: 2 * n for k, n in want.items()}:
+                raise AssertionError(f"{tag} launches over 2 rounds "
+                                     f"{launches}, want 2 x {want}")
+            if not all(bool(torch.isfinite(x).all()) for x in params(state)):
+                raise AssertionError(f"{tag} non-finite params after the "
+                                     "kernel rounds")
+            kernel_final = [x.cpu() for x in params(state)]   # to the host
+        elif any(launches.values()):
+            raise AssertionError(f"{tag} the plain path launched {launches}")
+        else:
+            diff = max(float((x - y.to(x.device)).abs().max())
+                       for x, y in zip(params(state), kernel_final))
         del state, step
-    finite = all(bool(torch.isfinite(x).all())
-                 for x in tree_leaves(finals[True]))
-    diff = max(float((a - b).abs().max()) for a, b in zip(
-        tree_leaves(finals[True]), tree_leaves(finals[False])))
-    print(f"[main] params after 2 rounds, kernel vs plain: max abs diff "
-          f"{diff:.3e}, all finite {finite}")
-    del finals
-    if not finite:
-        raise AssertionError("non-finite params after the kernel rounds")
-    for r, (a, b) in enumerate(zip(losses[True], losses[False])):
+    del kernel_final
+    print(f"{tag} launches per round {max(want.values())} of each of "
+          f"{[k for k, n in want.items() if n]}, none on the plain path | "
+          f"params after 2 rounds, kernel vs plain: max abs diff {diff:.3e} "
+          f"(limit {PARAMS_TOL:g}), all finite True", flush=True)
+    if not diff <= PARAMS_TOL:
+        raise AssertionError(f"{tag} params: kernel and plain paths disagree")
+    for r, (x, y) in enumerate(zip(losses[True], losses[False])):
         for key in ("d_loss", "s_loss"):
-            rel = abs(a[key] - b[key]) / abs(b[key])
-            print(f"[main] round {r + 1} {key}: kernel {a[key]:.6f} plain "
-                  f"{b[key]:.6f} rel diff {rel:.2e} (limit 1e-3)")
-            if not (rel <= 1e-3 and math.isfinite(a[key])):
-                raise AssertionError(f"round {r + 1} {key}: kernel and plain "
-                                     "paths disagree")
-    profile_round(torch, F.make_train_step(cfg), tree_map(torch.clone, state0),
-                  batches[1])
-    del state0, batches
+            rel = abs(x[key] - y[key]) / abs(y[key])
+            print(f"{tag} round {r + 1} {key}: kernel {x[key]:.6f} plain "
+                  f"{y[key]:.6f} rel diff {rel:.2e} (limit 1e-3)")
+            if not (rel <= 1e-3 and math.isfinite(x[key])):
+                raise AssertionError(f"{tag} round {r + 1} {key}: kernel "
+                                     "and plain paths disagree")
+    profile_round(torch, F.make_train_step(cfg), fresh_state(), batches[1])
+    del batches
+    torch.cuda.empty_cache()
+
+
+def phase_main(torch, arch: str, counters) -> dict:
+    """One main path: kernels vs plain, a profiled round, and the driver.
+    ``counters`` are the kernel modules whose ``launches`` the driver's
+    rounds read."""
+    t_phase = time.perf_counter()
+    args, cfg = main_setup(arch, ["--rounds", "2"])
+    print(f"[main] {_describe(cfg)}", flush=True)
+    per_round, want = launches_per_round(cfg, counters)
+    kernel_vs_plain(torch, "[main]", args, cfg, counters, want)
 
     # 4b: the driver at windows 1 and 2, in turns (1, 2, 2, 1)
     rounds = DRIVER_ROUNDS[arch]
     runs = []
     for window in (1, 2, 2, 1):
-        run = drive(torch, arch, counters, window, rounds)
+        run = drive(torch, *main_setup(arch, ["--rounds", str(rounds),
+                                              "--window", str(window)]),
+                    counters)
         want_total = {k: n * rounds for k, n in want.items()}
         for r, m in enumerate(run["history"]):
             if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
@@ -616,28 +691,20 @@ def phase_main(torch, arch: str, counters) -> dict:
             "peak_bytes": peak}
 
 
-def drive(torch, arch: str, counters, window: int, rounds: int,
-          extra=(), keep_final: bool = False) -> dict:
-    """One run of the driver (``train.run_pod``) on ``arch``'s main path at
-    ``window``: every kernel's launch count is set to 0 just before it and
-    read just after, and the peak memory is taken over it alone.  Prints
-    the losses, the steady tok/s (rounds 2..N over the time from the first
-    round's completion to the last's, on the card's clock: a drain lags its
-    round by up to window - 1 dispatches), the per-round tok/s, the host
-    seconds per round inside step() apart from planning and building, and
-    the executor's summary.  ``keep_final`` returns the final dev, aux and
-    srv params, copied to the host."""
+def drive(torch, args, cfg, counters, keep_final: bool = False) -> dict:
+    """One run of the driver (``train.run_pod(args, cfg)``): every kernel's
+    launch count is set to 0 just before it and read just after, and the
+    peak memory is taken over it alone.  Prints the losses, the steady
+    tok/s (rounds 2..N over the time from the first round's completion to
+    the last's, on the card's clock: a drain lags its round by up to
+    window - 1 dispatches), the per-round tok/s, the host seconds per round
+    inside step() apart from planning and building, and the executor's
+    summary.  ``keep_final`` returns the final dev, aux and srv params,
+    copied to the host."""
     from repro_torch.core.executor import completion_gap_s
     from repro_torch.launch import train
     from repro_torch.models.common import tree_map
-    flags = ["--rounds", str(rounds), "--window", str(window), *extra]
-    if arch in WIDE_PATHS:
-        args, cfg = wide_setup(arch, flags)
-    else:
-        args = train.build_parser().parse_args(MAIN_ARGS + MAIN_PATHS[arch]
-                                               + flags)
-        cfg = train.pod_config(args)
-    tokens = cfg.global_batch * cfg.seq_len
+    rounds, tokens = args.rounds, cfg.global_batch * cfg.seq_len
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -652,7 +719,8 @@ def drive(torch, arch: str, counters, window: int, rounds: int,
     stats, xs = out["round_stats"], out["executor"]
     per_round = [tokens / completion_gap_s(a, b)
                  for a, b in zip(stats, stats[1:])]
-    tag = f"[drive] {arch} --window {window} {' '.join(extra)}".rstrip()
+    tag = f"[drive] {cfg.arch.name} --window {args.window}" + \
+        (f" --p-drop {args.p_drop}" if args.p_drop else "")
     print(f"{tag}: history "
           f"{[(m['d_loss'], m['s_loss']) for m in out['history']]}")
     print(f"{tag}: steady {out['steady_tok_s']:,.1f} tok/s (rounds 2-"
@@ -684,9 +752,9 @@ def phase_churn(torch, counters) -> None:
     dropped group."""
     from repro_torch.models.common import tree_leaves
     t0 = time.perf_counter()
-    runs = {w: drive(torch, "smollm-135m", counters, w, 6,
-                     extra=("--p-drop", "0.3"), keep_final=True)
-            for w in (1, 2)}
+    runs = {w: drive(torch, *main_setup("smollm-135m", [
+        "--rounds", "6", "--window", str(w), "--p-drop", "0.3"]), counters,
+        keep_final=True) for w in (1, 2)}
     same_hist = runs[1]["history"] == runs[2]["history"]
     same_params = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(runs[1]["final"]), tree_leaves(runs[2]["final"])))
@@ -705,39 +773,16 @@ def phase_churn(torch, counters) -> None:
         raise AssertionError(f"no group was retired under churn: {retention}")
 
 
-def wide_setup(arch: str, flags):
-    """(args, cfg) of a phase-4c path: the registry's full config cut to
-    ``WIDE_PATHS``' depth, every width kept."""
-    from repro_torch.launch import train
-    n_layers, l_split, batch = WIDE_PATHS[arch]
-    args = train.build_parser().parse_args(
-        WIDE_ARGS + ["--arch", arch, "--l-split", str(l_split), "--batch",
-                     str(batch), *flags])
-    cfg = train.pod_config(args)
-    return args, dataclasses.replace(cfg,
-                                     arch=cfg.arch.scaled(n_layers=n_layers))
-
-
 def phase_wide(torch, arch: str, counters) -> dict:
-    """A full-width, depth-cut path: kernels vs plain over two rounds from
-    one state (drawn twice from one seed: two copies of the state do not
-    fit beside a round's gradients), launches per round, one profiled
-    round, and three driver rounds at window 2."""
-    import numpy as np
-
+    """A full-width, depth-cut path: kernels vs plain, one profiled round,
+    and three driver rounds at window 2."""
     from repro_torch.configs import registry
-    from repro_torch.core import fedopt_step as F
-    from repro_torch.core.control_plane import ControlPlane
-    from repro_torch.launch import train
-    from repro_torch.models.common import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
     args, cfg = wide_setup(arch, ["--rounds", "2"])
     a, full = cfg.arch, registry.get(arch)
     dev_layers = cfg.l_split * a.period
-    per_round = cfg.H * (cfg.n_groups * dev_layers + a.n_layers - dev_layers)
-    want = {name: per_round if name.startswith("fa_") else 0
-            for c in counters for name in c.launches}
+    per_round, want = launches_per_round(cfg, counters)
     print(f"[wide] {arch} at every published width: d_model {a.d_model}, "
           f"heads {a.n_heads}:{a.n_kv_heads}, hd {a.hd}, d_ff {a.d_ff} "
           f"({a.activation}), vocab {a.vocab}, pattern {list(a.pattern)}, "
@@ -750,77 +795,12 @@ def phase_wide(torch, arch: str, counters) -> dict:
           f"(micro-batch {cfg.micro_batch}, server batch "
           f"{cfg.n_groups * cfg.micro_batch}; the other paths: 8) | H={cfg.H}"
           f", seq {cfg.seq_len}, omega {cfg.omega}, remat {cfg.remat!r}, "
-          f"f32, TF32 off", flush=True)
-
-    def fresh_state():
-        torch.cuda.empty_cache()
-        return F.init_train_state(
-            torch.Generator(device="cuda").manual_seed(args.seed), cfg)
-
-    cplane = ControlPlane(cfg.n_groups, cfg.omega, cfg.H)
-    streams = train._group_streams(cfg, seed=args.seed)
-    rng = np.random.default_rng(args.seed)
-    batches = []
-    for _ in range(2):
-        plan = cplane.plan_round()
-        batches.append(train._make_batch(cfg, streams, rng, plan, "cuda"))
-        cplane.finish_round()
-    params = lambda st: [x for k in ("dev", "aux", "srv")
-                         for x in tree_leaves(st[k])]
-    losses = {}
-    for use_kernel in (True, False):
-        step = F.make_train_step(dataclasses.replace(cfg,
-                                                     use_kernel=use_kernel))
-        state = fresh_state()
-        if use_kernel:
-            n = sum(x.numel() for x in params(state))
-            print(f"[wide] params: {n:,} ({n * 4 / 1e9:.2f} GB f32) for "
-                  f"G={cfg.n_groups} groups, the aux networks and the "
-                  f"server", flush=True)
-        for c in counters:
-            c.reset_launches()
-        losses[use_kernel] = []
-        for r, batch in enumerate(batches):
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            m = {k: float(v) for k, v in m.items()}
-            losses[use_kernel].append(m)
-            print(f"[wide] {'kernel' if use_kernel else 'plain '} round "
-                  f"{r + 1}: d_loss {m['d_loss']!r} s_loss {m['s_loss']!r} "
-                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
-        launches = {k: v for c in counters for k, v in c.launches.items()}
-        if use_kernel:
-            if launches != {k: 2 * n for k, n in want.items()}:
-                raise AssertionError(f"{arch}: launches over 2 rounds "
-                                     f"{launches}, want 2 x {want}")
-            if not all(bool(torch.isfinite(x).all()) for x in params(state)):
-                raise AssertionError(f"{arch}: non-finite params after the "
-                                     "kernel rounds")
-            kernel_final = [x.cpu() for x in params(state)]   # to the host
-        elif any(launches.values()):
-            raise AssertionError(f"{arch}: the plain path launched {launches}")
-        else:
-            diff = max(float((x - y.to(x.device)).abs().max())
-                       for x, y in zip(params(state), kernel_final))
-        del state, step
-    print(f"[wide] launches per round {per_round} of each fa kernel = H "
-          f"{cfg.H} x (G {cfg.n_groups} x {dev_layers} device layers + "
-          f"{a.n_layers - dev_layers} server layers); the aux block takes "
-          f"none | params after 2 rounds, kernel vs plain: max abs diff "
-          f"{diff:.3e}, all finite True", flush=True)
-    del kernel_final
-    for r, (x, y) in enumerate(zip(losses[True], losses[False])):
-        for key in ("d_loss", "s_loss"):
-            rel = abs(x[key] - y[key]) / abs(y[key])
-            print(f"[wide] round {r + 1} {key}: kernel {x[key]:.6f} plain "
-                  f"{y[key]:.6f} rel diff {rel:.2e} (limit 1e-3)")
-            if not (rel <= 1e-3 and math.isfinite(x[key])):
-                raise AssertionError(f"{arch} round {r + 1} {key}: kernel "
-                                     "and plain paths disagree")
-    profile_round(torch, F.make_train_step(cfg), fresh_state(), batches[1])
-    del batches
-    torch.cuda.empty_cache()
-    run = drive(torch, arch, counters, 2, WIDE_DRIVER_ROUNDS)
+          f"f32, TF32 off | launches per round {per_round} = H {cfg.H} x "
+          f"(G {cfg.n_groups} x {dev_layers} device layers + "
+          f"{a.n_layers - dev_layers} server layers)", flush=True)
+    kernel_vs_plain(torch, f"[wide] {arch}", args, cfg, counters, want)
+    run = drive(torch, *wide_setup(arch, [
+        "--rounds", str(WIDE_DRIVER_ROUNDS), "--window", "2"]), counters)
     if not all(math.isfinite(m[k]) for m in run["history"]
                for k in ("d_loss", "s_loss")):
         raise AssertionError(f"{arch} driver: non-finite loss")
@@ -872,8 +852,8 @@ def main() -> int:
             kernels[-1]["launches_by_path"] = {
                 arch: paths[arch]["launches"][name],
                 **{w: wide[w]["launches"][name] for w in wide}}
-            kernels[-1]["hd128_rows"] = {c[0]: record[name][c[0]]
-                                         for c in WIDE_CASES}
+            kernels[-1]["hd128_rows"] = {c: record[name][c]
+                                         for c in WIDE_TIMED}
     print(f"[time] total {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())

@@ -191,9 +191,9 @@ def make_train_step(cfg: FedStepConfig):
     def aggregate(tree, weights, recv_mask):
         """Staleness-weighted average over the group axis, broadcast to the
         groups in ``recv_mask``; all-zero weights keep every group's params
-        (Alg. 4 lines 12-20).  In place, one group's rows at a time: a
-        second copy of every group's params does not fit beside a
-        full-width model's (gemma2-27b's dev and aux are 24 GB at G=2)."""
+        (Alg. 4 lines 12-20).  In place: a second copy of every group's
+        params does not fit beside a full-width model's (gemma2-27b's dev
+        and aux are 24 GB at G=2)."""
         w_sum = torch.sum(weights)
         w = weights / torch.clamp(w_sum, min=1e-9)
         take = (recv_mask > 0.5) & (w_sum > 0)     # (G,) on the device
@@ -201,9 +201,8 @@ def make_train_step(cfg: FedStepConfig):
         def mean_bcast(x):
             xw = _dequant(_quant(x)) if cfg.agg_compress else x.float()
             g = torch.tensordot(w, xw, dims=1).to(x.dtype)
-            for i in range(x.shape[0]):
-                torch.where(take[i], g, x[i], out=x[i])
-            return x
+            rows = take.reshape((-1,) + (1,) * (x.ndim - 1))
+            return torch.where(rows, g, x, out=x)
 
         with torch.no_grad():
             return tree_map(mean_bcast, tree)
