@@ -23,8 +23,11 @@ exits non-zero:
    and gemma2-27b paths (``WIDE_CASES``), at every shape those paths give
    the kernels (server and device halves): 64:8 heads, 32:16 heads with the
    logit cap 50, gemma2's local blocks (window 4096) at S=1024, and at
-   S=6144, where the window cuts.  At the main shapes and the rows in
-   ``WIDE_TIMED``,
+   S=6144, where the window cuts.  Then the rows of the llama-3.2-vision
+   and whisper paths (``FRONTEND_CASES``): 64:8 heads at hd 128 with
+   micro-batch 1, and whisper's 6:6 heads at hd 64 over 1500 frames
+   (batch 8 and 2) and 448 tokens (batch 8).  At the main shapes and the
+   rows in ``WIDE_TIMED`` and ``FRONTEND_CASES``,
    times (CUDA events, median of 30 after warm-up) beside the plain
    version, one PyTorch call for the same function where there is one
    (SDPA) and the card's bound: the least time with the products as 3xTF32
@@ -45,13 +48,18 @@ exits non-zero:
    and its peak memory, steady tok/s, host seconds inside ``step()`` per
    round and the executor's summary; the two windows' histories must be
    bit-identical.
-   4c: then qwen3-32b (qk-norm, untied head) and gemma2-27b (local and
-   global blocks, soft-caps, GeGLU) at every published width, cut in depth
-   (``WIDE_PATHS``: 2 and 4 layers, one period on each side of the split)
-   and run at G=2: the same kernels-vs-plain check and profiled round,
-   and three driver rounds through the
-   ``RoundExecutor`` at window 2 (steady tok/s, device ms per round, peak
-   memory).  The cuts are printed on the path's first line.
+   4c: then qwen3-32b (qk-norm, untied head), gemma2-27b (local and
+   global blocks, soft-caps, GeGLU) and llama-3.2-vision-90b (gated cross
+   blocks on the frontend stub) at every published width, cut in depth
+   (``WIDE_PATHS``: 2, 4 and 4 layers, one period on each side of the
+   split; llama-vision's period cut from five blocks to one attention
+   block and the cross block) and run at G=2, and whisper-tiny
+   (encoder-decoder on the frame stub) with nothing cut: the same
+   kernels-vs-plain check and profiled round, and three driver rounds
+   through the ``RoundExecutor`` at window 2 (steady tok/s, device ms per
+   round, peak memory).  The cuts are printed on the path's first line.
+   The driver feeds zero frontends, as the JAX driver does, so whisper's
+   device loss is exactly 0 on both paths.
 5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
    six rounds at windows 1 and 2: bit-identical histories and final
    params, and a dropped group must have been retired (gathered from the
@@ -113,17 +121,29 @@ MAIN_PATHS = {  # arch: its own flags
 }
 DRIVER_ROUNDS = {"smollm-135m": 5, "mamba2-780m": 3}   # per driver run
 # Phase 4c: full width, cut in depth (no depth flag: the script builds the
-# FedStepConfig itself); arch: (layers kept, l_split in periods, batch per
-# group).  G=2, H=4, so the server half's batch is 2 * batch / 4.
-WIDE_ARGS = ["--mode", "pod", "--full", "--groups-per-shard", "2", "--H", "4",
-             "--seq-len", "1024", "--omega", "1", "--use-kernel", "--device",
-             "cuda"]
-WIDE_PATHS = {"qwen3-32b": (2, 1, 8), "gemma2-27b": (4, 1, 4)}
+# FedStepConfig itself); arch: (the cuts, as ``ArchConfig.scaled``
+# keywords; l_split in periods; G; batch per group; seq).  H=4, so the
+# device's micro-batch is batch / 4 and the server's batch G * batch / 4.
+# llama-vision keeps one attention block before its cross block per
+# period: its published five-block period needs two periods, 10 layers,
+# and at f32 their device side alone (about 2 x 25 GB) does not fit beside
+# the server's params and gradients.  whisper-tiny runs whole, with 448
+# tokens, Whisper's text context (arXiv:2212.04356).
+WIDE_ARGS = ["--mode", "pod", "--full", "--H", "4", "--omega", "1",
+             "--use-kernel", "--device", "cuda"]
+WIDE_PATHS = {
+    "qwen3-32b": (dict(n_layers=2), 1, 2, 8, 1024),
+    "gemma2-27b": (dict(n_layers=4), 1, 2, 4, 1024),
+    "llama-3.2-vision-90b": (dict(n_layers=4, pattern=(("attn", "dense"),
+                                                       ("cross", "dense"))),
+                             1, 2, 4, 1024),
+    "whisper-tiny": ({}, 1, 4, 8, 448),
+}
 WIDE_DRIVER_ROUNDS = 3
 # Params after two rounds, kernels vs plain: max |difference| (phase 4).
-# Each of the four paths reads 2.384e-07 on an H100 (one float32 ulp at
-# |p| in [2, 4)); a wrong kernel moves params by lr_d (0.05) times its
-# gradient's error.
+# The paths read 2.384e-07 on an H100 (one float32 ulp at |p| in [2, 4)),
+# whisper-tiny 8.792e-07; a wrong kernel moves params by lr_d (0.05) times
+# its gradient's error.
 PARAMS_TOL = 1e-5
 
 
@@ -214,6 +234,20 @@ WIDE_CASES = [
      dict(causal=True, window=4096, logit_cap=50.0), "float32"),
 ]
 WIDE_TIMED = ("qwen3", "gemma2", "gemma2-local")
+# The self-attention of the frontend paths (phase 4c; cross blocks never
+# take the kernels): llama-3.2-vision's device half at micro-batch 1 (its
+# server half, batch 2, is qwen3-dev's shape), whisper's encoder over 1500
+# frames on the server (batch 8) and the device (micro-batch 2), and its
+# decoder over 448 tokens on the server.  All are timed.
+FRONTEND_CASES = [
+    ("llama-vision-dev", (1, 1024, 1024, 64, 8, 128), dict(causal=True),
+     "float32"),
+    ("whisper-enc", (8, 1500, 1500, 6, 6, 64), dict(causal=True), "float32"),
+    ("whisper-enc-dev", (2, 1500, 1500, 6, 6, 64), dict(causal=True),
+     "float32"),
+    ("whisper-dec", (8, 448, 448, 6, 6, 64), dict(causal=True), "float32"),
+]
+TIMED = WIDE_TIMED + tuple(case for case, *_ in FRONTEND_CASES)
 
 
 def _inputs(torch, shape, dtype, seed):
@@ -311,7 +345,8 @@ def _ms_text(ms) -> str:
 
 def phase_kernels(torch, fa, ref) -> dict:
     record = {}
-    for seed, (case, shape, opts, dt) in enumerate(CASES + WIDE_CASES):
+    for seed, (case, shape, opts, dt) in enumerate(CASES + WIDE_CASES
+                                                   + FRONTEND_CASES):
         dtype = getattr(torch, dt)
         q, k, v, do = _inputs(torch, shape, dtype, seed)
         print(f"[kernels] {case}: B,S,Skv,H,Hkv,hd={shape} {opts} {dt}",
@@ -331,7 +366,7 @@ def phase_kernels(torch, fa, ref) -> dict:
                "fa_bwd_dq": _close(torch, "dq", dq, dq_r, *bw_tol),
                "fa_bwd_dkv": max(_close(torch, "dk", dk, dk_r, *bw_tol),
                                  _close(torch, "dv", dv, dv_r, *bw_tol))}
-        if not (case.startswith("main") or case in WIDE_TIMED):
+        if not (case.startswith("main") or case in TIMED):
             continue
         runs = {"fa_fwd": (lambda: fa.fa_fwd(q, k, v, **opts),
                            lambda: ref.fa_fwd(q, k, v, **opts)),
@@ -535,24 +570,41 @@ def main_setup(arch: str, flags):
 
 
 def wide_setup(arch: str, flags):
-    """(args, cfg) of a phase-4c path: the registry's full config cut to
-    ``WIDE_PATHS``' depth, every width kept."""
+    """(args, cfg) of a phase-4c path: the registry's full config with
+    ``WIDE_PATHS``' cuts, every width kept."""
     from repro_torch.launch import train
-    n_layers, l_split, batch = WIDE_PATHS[arch]
+    cuts, l_split, groups, batch, seq = WIDE_PATHS[arch]
     args = train.build_parser().parse_args(
-        WIDE_ARGS + ["--arch", arch, "--l-split", str(l_split), "--batch",
-                     str(batch), *flags])
+        WIDE_ARGS + ["--arch", arch, "--l-split", str(l_split),
+                     "--groups-per-shard", str(groups), "--batch", str(batch),
+                     "--seq-len", str(seq), *flags])
     cfg = train.pod_config(args)
-    return args, dataclasses.replace(cfg,
-                                     arch=cfg.arch.scaled(n_layers=n_layers))
+    return args, dataclasses.replace(cfg, arch=cfg.arch.scaled(**cuts))
+
+
+def kernel_blocks(cfg) -> tuple[int, int]:
+    """(device, server) blocks a micro-iteration runs that take the
+    kernels: the self-attention and Mamba blocks.  Cross blocks never do,
+    nor does the aux block; an enc-dec server adds its decoder's
+    self-attention blocks."""
+    from repro_torch.models.transformer import _decoder_cfg
+    arch = cfg.arch
+    takes = lambda a: sum(m in ("attn", "local", "mamba")
+                          for m, _ in a.pattern)
+    dev = cfg.l_split * takes(arch)
+    srv = (arch.n_periods - cfg.l_split) * takes(arch)
+    if arch.n_decoder_layers:
+        dec = _decoder_cfg(arch)
+        srv += dec.n_periods * takes(dec)
+    return dev, srv
 
 
 def launches_per_round(cfg, counters) -> tuple[int, dict]:
     """(n, want): each of the path's kernels launches n times a round, once
-    per block per micro-iteration (H x (G x device blocks + server
-    blocks); the aux block never takes them), and every other kernel never."""
-    dev_layers = cfg.l_split * cfg.arch.period
-    n = cfg.H * (cfg.n_groups * dev_layers + cfg.arch.n_layers - dev_layers)
+    per kernel block per micro-iteration (H x (G x device blocks + server
+    blocks), ``kernel_blocks``), and every other kernel never."""
+    dev, srv = kernel_blocks(cfg)
+    n = cfg.H * (cfg.n_groups * dev + srv)
     prefix = "ssd_" if cfg.arch.pattern[0][0] == "mamba" else "fa_"
     return n, {name: n if name.startswith(prefix) else 0
                for c in counters for name in c.launches}
@@ -632,7 +684,9 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
         raise AssertionError(f"{tag} params: kernel and plain paths disagree")
     for r, (x, y) in enumerate(zip(losses[True], losses[False])):
         for key in ("d_loss", "s_loss"):
-            rel = abs(x[key] - y[key]) / abs(y[key])
+            # two exact zeros agree (whisper's device loss on zero frames)
+            rel = 0.0 if x[key] == y[key] else \
+                abs(x[key] - y[key]) / abs(y[key]) if y[key] else math.inf
             print(f"{tag} round {r + 1} {key}: kernel {x[key]:.6f} plain "
                   f"{y[key]:.6f} rel diff {rel:.2e} (limit 1e-3)")
             if not (rel <= 1e-3 and math.isfinite(x[key])):
@@ -774,30 +828,39 @@ def phase_churn(torch, counters) -> None:
 
 
 def phase_wide(torch, arch: str, counters) -> dict:
-    """A full-width, depth-cut path: kernels vs plain, one profiled round,
-    and three driver rounds at window 2."""
+    """A full-width path with ``WIDE_PATHS``' cuts: kernels vs plain, one
+    profiled round, and three driver rounds at window 2."""
     from repro_torch.configs import registry
 
     t_phase = time.perf_counter()
     args, cfg = wide_setup(arch, ["--rounds", "2"])
     a, full = cfg.arch, registry.get(arch)
-    dev_layers = cfg.l_split * a.period
+    dev, srv = kernel_blocks(cfg)
     per_round, want = launches_per_round(cfg, counters)
+    cuts = [f"depth {full.n_layers} -> {a.n_layers} layers"] \
+        if a.n_layers != full.n_layers else []
+    if a.pattern != full.pattern:
+        cuts.append(f"period {full.period} -> {a.period} blocks")
+    if cfg.n_groups != 4:
+        cuts.append(f"G={cfg.n_groups} (the main paths: 4)")
+    if cfg.per_group_batch != 8:
+        cuts.append(f"batch {cfg.per_group_batch} per group (the main "
+                    "paths: 8)")
     print(f"[wide] {arch} at every published width: d_model {a.d_model}, "
           f"heads {a.n_heads}:{a.n_kv_heads}, hd {a.hd}, d_ff {a.d_ff} "
           f"({a.activation}), vocab {a.vocab}, pattern {list(a.pattern)}, "
           f"qk_norm {a.qk_norm}, attn cap {a.attn_softcap}, final cap "
           f"{a.final_softcap}, window {a.window}, tied head "
-          f"{a.tie_embeddings} | cuts: depth {full.n_layers} -> "
-          f"{a.n_layers} layers ({dev_layers} on the device side, "
-          f"{a.n_layers - dev_layers} on the server), G={cfg.n_groups} "
-          f"(the other paths: 4), batch {cfg.per_group_batch} per group "
-          f"(micro-batch {cfg.micro_batch}, server batch "
-          f"{cfg.n_groups * cfg.micro_batch}; the other paths: 8) | H={cfg.H}"
-          f", seq {cfg.seq_len}, omega {cfg.omega}, remat {cfg.remat!r}, "
-          f"f32, TF32 off | launches per round {per_round} = H {cfg.H} x "
-          f"(G {cfg.n_groups} x {dev_layers} device layers + "
-          f"{a.n_layers - dev_layers} server layers)", flush=True)
+          f"{a.tie_embeddings}, frontend_len {a.frontend_len}, decoder "
+          f"layers {a.n_decoder_layers} | cuts: "
+          f"{'; '.join(cuts) or 'none'} | {a.n_layers} layers "
+          f"({cfg.l_split * a.period} on the device side), G="
+          f"{cfg.n_groups}, batch {cfg.per_group_batch} (micro-batch "
+          f"{cfg.micro_batch}, server batch {cfg.n_groups * cfg.micro_batch})"
+          f", H={cfg.H}, seq {cfg.seq_len}, omega {cfg.omega}, remat "
+          f"{cfg.remat!r}, f32, TF32 off | launches per round {per_round} = "
+          f"H {cfg.H} x (G {cfg.n_groups} x {dev} device blocks + {srv} "
+          "server blocks that take the kernels)", flush=True)
     kernel_vs_plain(torch, f"[wide] {arch}", args, cfg, counters, want)
     run = drive(torch, *wide_setup(arch, [
         "--rounds", str(WIDE_DRIVER_ROUNDS), "--window", "2"]), counters)
@@ -854,6 +917,8 @@ def main() -> int:
                 **{w: wide[w]["launches"][name] for w in wide}}
             kernels[-1]["hd128_rows"] = {c: record[name][c]
                                          for c in WIDE_TIMED}
+            kernels[-1]["frontend_rows"] = {c: record[name][c]
+                                            for c, *_ in FRONTEND_CASES}
     print(f"[time] total {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())

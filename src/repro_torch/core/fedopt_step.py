@@ -84,7 +84,8 @@ def init_train_state(gen: torch.Generator, cfg: FedStepConfig) -> dict:
     arch, G = cfg.arch, cfg.n_groups
     full = tfm.init_params(gen, arch, cfg.param_dtype)
     dev1, srv = tfm.split_params(full, arch, cfg.l_split)
-    aux1 = tfm.make_aux_params(gen, arch, cfg.param_dtype)
+    aux1 = tfm.make_aux_params(gen, arch, cfg.param_dtype,
+                               regression=bool(arch.n_decoder_layers))
     stack = lambda t: tree_map(lambda x: x.expand(G, *x.shape).clone(), t)
     srv = tree_map(torch.clone, srv)           # own storage, not views of full
     s_init, _ = make_optimizer(cfg.server_opt)
@@ -96,13 +97,27 @@ def init_train_state(gen: torch.Generator, cfg: FedStepConfig) -> dict:
     return state
 
 
+def _ring_fields(arch: ArchConfig) -> tuple:
+    """The batch fields a ring slot carries beside the acts: the labels, an
+    enc-dec arch's decoder tokens and a VLM's frontend embeddings."""
+    return ("labels",) + (("tokens",) if arch.n_decoder_layers else ()) + \
+        (("frontend",) if arch.family == "vlm" else ())
+
+
 def _empty_act_slot(cfg: FedStepConfig, device) -> dict:
-    """One scheduled activation batch (one micro-iteration's output)."""
+    """One scheduled activation batch (one micro-iteration's output); an
+    encoder prefix's acts are ``frontend_len`` frames long."""
+    arch = cfg.arch
     B = cfg.n_groups * cfg.micro_batch
-    return {"acts": torch.zeros(B, cfg.seq_len, cfg.arch.d_model,
-                                dtype=cfg.param_dtype, device=device),
-            "labels": torch.zeros(B, cfg.seq_len, dtype=torch.int64,
-                                  device=device)}
+    S = arch.frontend_len if arch.n_decoder_layers else cfg.seq_len
+    buf = {"acts": torch.zeros(B, S, arch.d_model, dtype=cfg.param_dtype,
+                               device=device)}
+    for k in _ring_fields(arch):
+        buf[k] = torch.zeros(B, arch.frontend_len, arch.d_model,
+                             dtype=cfg.param_dtype, device=device) \
+            if k == "frontend" else \
+            torch.zeros(B, cfg.seq_len, dtype=torch.int64, device=device)
+    return buf
 
 
 def _empty_act_buf(cfg: FedStepConfig, device) -> dict:
@@ -146,6 +161,10 @@ def _host_ints(x, name: str) -> list:
     return torch.as_tensor(x).tolist()
 
 
+#: The batch's per-group data fields, (G, H, b, ...) each.
+DATA_FIELDS = ("tokens", "labels", "frontend")
+
+
 def _unflatten_like(tree, leaves):
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
@@ -155,7 +174,8 @@ def make_train_step(cfg: FedStepConfig):
     """Returns step(state, batch) -> (state, metrics): one FL round of H
     micro-iterations and the end-of-round aggregation.
 
-    ``batch``: ``tokens``/``labels`` (G, H, b, S) int64, ``send_mask``
+    ``batch``: ``tokens``/``labels`` (G, H, b, S) int64, for a VLM or an
+    enc-dec arch ``frontend`` (G, H, b, frontend_len, d_model), ``send_mask``
     (H, G), ``agg_weight`` and ``bcast_mask`` (G,) on the state's device,
     and ``read_slot``/``write_slot`` (H,) as host values — a CPU tensor or
     numpy — read with no device sync (see ``RoundPlan.batch_fields``).
@@ -166,14 +186,22 @@ def make_train_step(cfg: FedStepConfig):
     _, s_update = make_optimizer(cfg.server_opt)
     kw = dict(use_kernel=cfg.use_kernel, remat=cfg.remat)
 
-    def device_half(dev, aux, g, tokens, labels):
+    def device_half(dev, aux, g, batch_gh):
         """Group g's local-loss training (Alg. 1 lines 3-12), in place on
-        its rows of the stacked params."""
+        its rows of the stacked params.  An encoder prefix (whisper) trains
+        on the frame stub, which is its aux labels too; a VLM's cross
+        blocks read the group's frontend."""
+        if arch.n_decoder_layers:
+            inputs = labels = batch_gh["frontend"]
+        else:
+            inputs, labels = batch_gh["tokens"], batch_gh["labels"]
+        frontend = batch_gh["frontend"] if arch.family == "vlm" else None
         rows = [x[g] for x in tree_leaves(dev) + tree_leaves(aux)]
         leaves = [x.detach().requires_grad_() for x in rows]
         d = _unflatten_like(dev, leaves[:len(tree_leaves(dev))])
         a = _unflatten_like(aux, leaves[len(tree_leaves(dev)):])
-        loss, acts = tfm.device_train_loss(d, a, arch, tokens, labels, **kw)
+        loss, acts = tfm.device_train_loss(d, a, arch, inputs, labels,
+                                           frontend=frontend, **kw)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             for p, gr in zip(rows, grads):
@@ -183,8 +211,13 @@ def make_train_step(cfg: FedStepConfig):
     def server_grads(srv, buf):
         """Loss and grads of one server iteration on a scheduled batch."""
         leaves = [x.detach().requires_grad_() for x in tree_leaves(srv)]
-        loss = tfm.server_forward_loss(_unflatten_like(srv, leaves), arch,
-                                       buf["acts"], buf["labels"], **kw)
+        s = _unflatten_like(srv, leaves)
+        if arch.n_decoder_layers:
+            loss = tfm.server_encdec_loss(s, arch, buf["acts"], buf["tokens"],
+                                          buf["labels"], **kw)
+        else:
+            loss = tfm.server_forward_loss(s, arch, buf["acts"], buf["labels"],
+                                           frontend=buf.get("frontend"), **kw)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), _unflatten_like(srv, grads)
 
@@ -218,11 +251,13 @@ def make_train_step(cfg: FedStepConfig):
             if cfg.server_accum else None
         d_losses, s_losses = [], []
         for h in range(H):
-            outs = [device_half(dev, aux, g, batch["tokens"][g, h],
-                                batch["labels"][g, h]) for g in range(G)]
+            outs = [device_half(dev, aux, g, {k: batch[k][g, h] for k in
+                                              DATA_FIELDS if k in batch})
+                    for g in range(G)]
             d_losses.append(torch.mean(torch.stack([o[0] for o in outs])))
             new_buf = {"acts": torch.cat([o[1] for o in outs]),
-                       "labels": batch["labels"][:, h].reshape(G * b, -1)}
+                       **{k: batch[k][:, h].flatten(0, 1)
+                          for k in _ring_fields(arch)}}
 
             if cfg.pipeline_acts:
                 # the server reads its scheduled slot from before this
@@ -244,6 +279,11 @@ def make_train_step(cfg: FedStepConfig):
             else:
                 s_loss, gs = server_grads(srv, train_buf)
                 srv, srv_opt = s_update(srv, gs, srv_opt, cfg.lr_s)
+            # the server's gradients go before the next iteration's device
+            # halves: llama-3.2-vision's (10.3 GiB) beside a group's
+            # (13.7 GiB) and three copies of the server's params ran the
+            # card out of memory
+            del gs
             s_losses.append(s_loss)
 
         if cfg.server_accum:

@@ -24,9 +24,13 @@ Examples::
         --l-split 6 --omega 1 --rounds 3 --window 1
     python -m repro_torch.launch.train --mode pod --arch gemma2-27b \\
         --use-kernel --device cpu --batch 4 --H 2 --seq-len 16 --rounds 2
+    python -m repro_torch.launch.train --mode pod --arch whisper-tiny \\
+        --use-kernel --device cpu --batch 4 --H 2 --seq-len 16 --rounds 2
 
 ``--arch`` takes ``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``,
-``qwen3-32b`` and ``gemma2-27b``.
+``qwen3-32b``, ``gemma2-27b``, ``llama-3.2-vision-90b`` and
+``whisper-tiny`` (whose tok/s counts the decoder's ``--seq-len`` tokens,
+not the encoder's frames).
 """
 from __future__ import annotations
 
@@ -95,7 +99,9 @@ def _group_streams(cfg: F.FedStepConfig, seed: int = 0):
 def _make_batch(cfg: F.FedStepConfig, streams, rng: np.random.Generator,
                 plan, device) -> dict:
     """One round's inputs: per-group token windows drawn exactly as the JAX
-    driver draws them, plus the plan's schedule and weight fields."""
+    driver draws them, plus the plan's schedule and weight fields.  An arch
+    with a frontend stub (VLM, enc-dec) gets ``frontend`` embeddings of
+    zeros, (G, H, b, frontend_len, d_model), as the JAX driver feeds it."""
     G, H, b, S = cfg.n_groups, cfg.H, cfg.micro_batch, cfg.seq_len
     tokens = np.zeros((G, H, b, S), np.int64)
     labels = np.zeros((G, H, b, S), np.int64)
@@ -110,6 +116,11 @@ def _make_batch(cfg: F.FedStepConfig, streams, rng: np.random.Generator,
     batch = {"tokens": to_device(tokens, device),
              "labels": to_device(labels, device)}
     batch.update(plan.batch_fields(device))
+    arch = cfg.arch
+    if arch.frontend_len:
+        batch["frontend"] = torch.zeros(G, H, b, arch.frontend_len,
+                                        arch.d_model, dtype=cfg.param_dtype,
+                                        device=device)
     return batch
 
 

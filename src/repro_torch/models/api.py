@@ -1,11 +1,15 @@
 """Architecture description consumed by the port's model code.
 
-One :class:`ArchConfig` describes a decoder LM whose layer stack repeats a
+One :class:`ArchConfig` describes a model whose layer stack repeats a
 *period*: ``pattern`` lists (mixer, ffn) pairs and the stack is
 ``pattern * n_periods``.  Per-position params are stacked over periods,
 leaves shaped ``(n_periods, ...)``, as in the JAX package.  The port runs
-the ``("attn", "dense")``, ``("local", "dense")`` and ``("mamba", "none")``
-blocks.
+the ``("attn", "dense")``, ``("local", "dense")``, ``("mamba", "none")``,
+``("cross", "dense")`` and ``("attn", "none")`` blocks: decoder LMs
+(smollm, mamba2, command-r-plus, qwen3, gemma2), the VLM backbone whose
+cross blocks read the frontend stub's embeddings (llama-3.2-vision) and
+the encoder-decoder (whisper: ``n_layers`` encoder layers on the frame
+stub, ``n_decoder_layers`` decoder layers).
 """
 from __future__ import annotations
 
@@ -39,6 +43,10 @@ class ArchConfig:
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_chunk: int = 256
+    # enc-dec (audio): n_layers counts encoder layers; decoder mirrors it
+    n_decoder_layers: int = 0
+    # vlm / audio frontend stub: frontend embedding positions; 0 = none
+    frontend_len: int = 0
     aux_dim: int = 512                 # FedOptima aux head bottleneck dim
     ce_chunk: int = 512                # sequence positions per CE chunk
     attn_chunk: int = 1024             # query-chunk size of sdpa_chunked
@@ -60,12 +68,23 @@ class ArchConfig:
             self.d_model // self.n_heads
 
     def attn_cfg(self, mixer: str) -> AttentionConfig:
+        # the JAX package's test: no arch has the family "audio_enc", so
+        # whisper's ("audio") encoder self-attention is causal there too
         return AttentionConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
             qk_norm=self.qk_norm, attn_softcap=self.attn_softcap,
             window=self.window if mixer == "local" else None,
-            rope_theta=self.rope_theta, chunk_q=self.attn_chunk)
+            rope_theta=self.rope_theta, causal=(self.family != "audio_enc"),
+            chunk_q=self.attn_chunk)
+
+    def cross_cfg(self) -> AttentionConfig:
+        """Cross-attention to the frontend: no qk-norm, cap or window, and
+        no causal mask."""
+        return AttentionConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.head_dim,
+            causal=False, chunk_q=self.attn_chunk)
 
     def mlp_cfg(self) -> MlpConfig:
         return MlpConfig(d_model=self.d_model, d_ff=self.d_ff,

@@ -1,4 +1,5 @@
-"""Self-attention with GQA, qk-norm, sliding window and logit soft-capping.
+"""Attention with GQA, qk-norm, sliding window and logit soft-capping, and
+cross-attention (llama-3.2-vision's image layers, whisper's decoder).
 
 ``attention_apply`` dispatches to the flash-attention kernels
 (``repro_torch.kernels.ops.flash_attention``) when ``use_kernel`` is set,
@@ -51,13 +52,16 @@ def attention_init(gen: torch.Generator, cfg: AttentionConfig, *,
     return p
 
 
-def _project_qkv(params: dict, cfg: AttentionConfig, x):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, Hkv, hd); with qk-norm,
-    q and k are RMS-normed over hd here, before RoPE."""
+def _project_qkv(params: dict, cfg: AttentionConfig, x, xkv=None):
+    """x: (B, S, D) -> q (B, S, H, hd); k/v (B, Skv, Hkv, hd) from ``xkv``
+    (B, Skv, D), or from x for self-attention; with qk-norm, q and k are
+    RMS-normed over hd here, before RoPE."""
+    xkv = x if xkv is None else xkv
     B, S, _ = x.shape
+    Skv = xkv.shape[1]
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    k = (xkv @ params["wk"]).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
+    v = (xkv @ params["wv"]).reshape(B, Skv, cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q)
         k = rmsnorm_apply(params["k_norm"], k)
@@ -119,21 +123,26 @@ def sdpa_chunked(q, k, v, *, causal: bool, window: int | None,
                       for i in range(0, S, cq)], dim=1)
 
 
-def attention_apply(params: dict, cfg: AttentionConfig, x, *,
+def attention_apply(params: dict, cfg: AttentionConfig, x, *, xkv=None,
                     positions=None, use_kernel: bool = False):
-    """Full-sequence causal self-attention (training). x: (B, S, D)."""
+    """Full-sequence attention (training). x: (B, S, D).  Self-attention
+    rotates q and k (RoPE) and masks as ``cfg`` says; cross-attention to
+    ``xkv`` (B, Skv, D) has neither RoPE nor a causal mask."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(params, cfg, x, xkv)
+    if xkv is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        causal = cfg.causal
+    else:
+        causal = False
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, causal=cfg.causal,
-                                   window=cfg.window,
+        out = kops.flash_attention(q, k, v, causal=causal, window=cfg.window,
                                    logit_cap=cfg.attn_softcap)
     else:
-        out = sdpa_chunked(q, k, v, causal=cfg.causal, window=cfg.window,
+        out = sdpa_chunked(q, k, v, causal=causal, window=cfg.window,
                            logit_cap=cfg.attn_softcap, chunk_q=cfg.chunk_q)
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"]

@@ -1,7 +1,10 @@
-"""Backbone assembly and the FedOptima split API, for decoders built of
-the ("attn", "dense"), ("local", "dense") and ("mamba", "none") blocks:
-global and sliding-window attention (with qk-norm and logit soft-caps where
-the arch sets them) before a dense FFN, and the Mamba2 mixer alone.
+"""Backbone assembly and the FedOptima split API, for stacks built of the
+("attn", "dense"), ("local", "dense"), ("mamba", "none"), ("cross",
+"dense") and ("attn", "none") blocks: global and sliding-window attention
+(with qk-norm and logit soft-caps where the arch sets them) before a dense
+FFN, the Mamba2 mixer alone, gated cross-attention to the frontend
+(``h + tanh(gate) * cross_attn(ln1(h), frontend)``, then the FFN) and
+self-attention with no FFN (whisper's decoder pattern).
 
 The DNN is split at a period boundary ``l_split``.  The device half is
 ``embed + blocks[:l_split]`` plus an auxiliary network (one block of the
@@ -9,6 +12,12 @@ last pattern position's type and a factorized classifier head); the server
 half is ``blocks[l_split:] + final_norm`` and the head — the tied
 ``embed_out`` or the untied ``lm_head`` — trained on detached activations.
 The head's logits take the arch's ``final_softcap`` before the softmax.
+A VLM (llama-3.2-vision) passes the frontend stub's embeddings to every
+cross block on both halves.  An encoder-decoder (whisper) runs the encoder
+prefix on the device from frame embeddings (no device ``embed``; the aux
+head regresses the next frame), and the server finishes the encoder and
+runs the whole decoder (``dec_blocks``, ``dec_norm``), which cross-attends
+to the final encoder states (``server_encdec_loss``).
 
 ``remat`` (per period, ``torch.utils.checkpoint`` without reentrancy):
 ``False`` keeps every activation; ``True`` recomputes each period in the
@@ -33,7 +42,8 @@ from .mamba import mamba_apply, mamba_init
 from .mlp import mlp_apply, mlp_init
 
 #: (mixer, ffn) blocks the port runs so far.
-BLOCKS = (("attn", "dense"), ("local", "dense"), ("mamba", "none"))
+BLOCKS = (("attn", "dense"), ("local", "dense"), ("mamba", "none"),
+          ("cross", "dense"), ("attn", "none"))
 
 
 def _check_pattern(cfg: ArchConfig) -> None:
@@ -54,6 +64,9 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
     p = {"ln1": rmsnorm_init(cfg.d_model, device=dev, dtype=dtype)}
     if mixer == "mamba":
         p["mixer"] = mamba_init(gen, cfg.mamba_cfg(), dtype=dtype)
+    elif mixer == "cross":
+        p["mixer"] = attention_init(gen, cfg.cross_cfg(), dtype=dtype)
+        p["gate"] = torch.zeros((), device=dev, dtype=dtype)   # zero-init
     else:
         p["mixer"] = attention_init(gen, cfg.attn_cfg(mixer), dtype=dtype)
     if ffn == "dense":
@@ -83,7 +96,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab,
                                        dtype=dtype)
+    if cfg.n_decoder_layers:          # enc-dec: the decoder stack
+        dec_cfg = _decoder_cfg(cfg)
+        params["dec_blocks"] = _stack_init(gen, dec_cfg, dec_cfg.n_periods,
+                                           dtype)
+        params["dec_norm"] = rmsnorm_init(cfg.d_model, device=gen.device,
+                                          dtype=dtype)
     return params
+
+
+def _decoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """Decoder stack of an enc-dec model: self-attention, then
+    cross-attention to the encoder and the FFN."""
+    return cfg.scaled(n_layers=cfg.n_decoder_layers,
+                      pattern=(("attn", "none"), ("cross", "dense")),
+                      n_decoder_layers=0)
 
 
 # ---------------------------------------------------------------------------
@@ -91,11 +118,15 @@ def init_params(gen: torch.Generator, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 def _apply_block(p: dict, cfg: ArchConfig, mixer: str, ffn: str, h, *,
-                 positions, use_kernel: bool = False):
+                 positions, frontend=None, use_kernel: bool = False):
     x = rmsnorm_apply(p["ln1"], h)
     if mixer == "mamba":
         h = h + mamba_apply(p["mixer"], cfg.mamba_cfg(), x,
                             use_kernel=use_kernel)
+    elif mixer == "cross":
+        # never the kernel: the JAX package's cross call takes none either
+        h = h + torch.tanh(p["gate"]) * attention_apply(
+            p["mixer"], cfg.cross_cfg(), x, xkv=frontend)
     else:
         h = h + attention_apply(p["mixer"], cfg.attn_cfg(mixer), x,
                                 positions=positions, use_kernel=use_kernel)
@@ -118,13 +149,14 @@ _selective_context = functools.partial(create_selective_checkpoint_contexts,
 
 
 def _run_stack(blocks: list, cfg: ArchConfig, h, *, positions,
-               use_kernel: bool = False, remat=True):
+               frontend=None, use_kernel: bool = False, remat=True):
     _check_pattern(cfg)
 
     def period_fn(h, stacks_slice):
         for pos, (mixer, ffn) in enumerate(cfg.pattern):
             h = _apply_block(stacks_slice[pos], cfg, mixer, ffn, h,
-                             positions=positions, use_kernel=use_kernel)
+                             positions=positions, frontend=frontend,
+                             use_kernel=use_kernel)
         return h
 
     n = blocks[0]["ln1"]["scale"].shape[0]
@@ -190,36 +222,50 @@ def _slice_stacks(blocks: list, lo: int, hi: int) -> list:
 
 
 def make_aux_params(gen: torch.Generator, cfg: ArchConfig,
-                    dtype=torch.float32) -> dict:
+                    dtype=torch.float32, *, regression: bool = False) -> dict:
     """Auxiliary network: one block of the last pattern position's type and
-    a factorized dense classifier (d_model -> aux_dim -> vocab)."""
+    a factorized dense classifier (d_model -> aux_dim -> vocab).  With
+    ``regression`` (continuous inputs: whisper's encoder) the head goes
+    back to d_model (``head_reg``) for the next-frame MSE."""
     mixer, ffn = cfg.pattern[-1]
-    return {"block": _block_init(gen, cfg, mixer, ffn, dtype),
-            "norm": rmsnorm_init(cfg.d_model, device=gen.device, dtype=dtype),
-            "head_in": dense_init(gen, cfg.d_model, cfg.aux_dim, dtype=dtype),
-            "head_out": dense_init(gen, cfg.aux_dim, cfg.vocab, dtype=dtype)}
+    p = {"block": _block_init(gen, cfg, mixer, ffn, dtype),
+         "norm": rmsnorm_init(cfg.d_model, device=gen.device, dtype=dtype),
+         "head_in": dense_init(gen, cfg.d_model, cfg.aux_dim, dtype=dtype)}
+    if regression:
+        p["head_reg"] = dense_init(gen, cfg.aux_dim, cfg.d_model, dtype=dtype)
+    else:
+        p["head_out"] = dense_init(gen, cfg.aux_dim, cfg.vocab, dtype=dtype)
+    return p
 
 
 def split_params(params: dict, cfg: ArchConfig, l_split: int):
-    """Split at period boundary l_split in [1, n_periods - 1]."""
-    dev = {"blocks": _slice_stacks(params["blocks"], 0, l_split),
-           "embed": params["embed"]}
+    """Split at period boundary l_split in [1, n_periods - 1].  Enc-dec:
+    the device half is the encoder prefix, fed frame embeddings, so it has
+    no ``embed``; the decoder stays on the server, since it cross-attends
+    to the final encoder states."""
+    dev = {"blocks": _slice_stacks(params["blocks"], 0, l_split)}
+    if not cfg.n_decoder_layers:
+        dev["embed"] = params["embed"]
     srv = {"blocks": _slice_stacks(params["blocks"], l_split, cfg.n_periods),
            "final_norm": params["final_norm"]}
     if cfg.tie_embeddings:
         srv["embed_out"] = params["embed"]      # tied head lives server-side
     else:
         srv["lm_head"] = params["lm_head"]
+    if cfg.n_decoder_layers:
+        srv["dec_blocks"] = params["dec_blocks"]
+        srv["dec_norm"] = params["dec_norm"]
     return dev, srv
 
 
 def merge_params(dev: dict, srv: dict, cfg: ArchConfig) -> dict:
     blocks = [tree_map(lambda a, b: torch.cat([a, b]), d, s)
               for d, s in zip(dev["blocks"], srv["blocks"])]
-    out = {"embed": dev["embed"], "blocks": blocks,
+    out = {"embed": dev.get("embed", srv.get("embed_out")), "blocks": blocks,
            "final_norm": srv["final_norm"]}
-    if "lm_head" in srv:
-        out["lm_head"] = srv["lm_head"]
+    for key in ("lm_head", "dec_blocks", "dec_norm"):
+        if key in srv:
+            out[key] = srv[key]
     return out
 
 
@@ -228,20 +274,30 @@ def _positions(x):
 
 
 def device_forward(dev_params: dict, cfg: ArchConfig, tokens, *,
-                   use_kernel: bool = False, remat=True):
-    """The device-side block; returns activations (B, S, D)."""
-    h = dev_params["embed"][tokens]
+                   frontend=None, use_kernel: bool = False, remat=True):
+    """The device-side block; returns activations (B, S, D).  ``tokens`` is
+    (B, S) ids, or (B, F, D) frame embeddings for an encoder prefix;
+    ``frontend`` (B, F, D) feeds the VLM's cross blocks."""
+    h = dev_params["embed"][tokens] if tokens.ndim == 2 else tokens
     return _run_stack(dev_params["blocks"], cfg, h, positions=_positions(h),
-                      use_kernel=use_kernel, remat=remat)
+                      frontend=frontend, use_kernel=use_kernel, remat=remat)
 
 
-def aux_head_loss(aux_params: dict, cfg: ArchConfig, acts, labels):
-    """Local loss f_d through the auxiliary network (Alg. 1 lines 7-8).
-    The aux block never takes the kernels, as in the JAX package."""
+def aux_head_loss(aux_params: dict, cfg: ArchConfig, acts, labels, *,
+                  frontend=None):
+    """Local loss f_d through the auxiliary network (Alg. 1 lines 7-8):
+    CE on the local labels, or, when ``labels`` is the (B, F, D) frame
+    stream (whisper's encoder), the MSE of the next frame.  The aux block
+    never takes the kernels, as in the JAX package."""
     mixer, ffn = cfg.pattern[-1]
     h = _apply_block(aux_params["block"], cfg, mixer, ffn, acts,
-                     positions=_positions(acts))
+                     positions=_positions(acts), frontend=frontend)
     h = rmsnorm_apply(aux_params["norm"], h)
+    if labels.ndim == 3:
+        pred = (h @ aux_params["head_in"]) @ aux_params["head_reg"]
+        target = torch.roll(labels, -1, dims=1)
+        return torch.mean(torch.square(
+            (pred[:, :-1] - target[:, :-1]).float()))
     return _chunked_ce(
         lambda hc: (hc @ aux_params["head_in"]) @ aux_params["head_out"],
         h, labels, torch.ones(labels.shape, dtype=torch.float32,
@@ -249,32 +305,64 @@ def aux_head_loss(aux_params: dict, cfg: ArchConfig, acts, labels):
 
 
 def device_train_loss(dev_params: dict, aux_params: dict, cfg: ArchConfig,
-                      tokens, labels, *, use_kernel: bool = False,
-                      remat=True):
+                      tokens, labels, *, frontend=None,
+                      use_kernel: bool = False, remat=True):
     """Device-side objective F_d (Eq. 4).  Returns (loss, activations)."""
-    acts = device_forward(dev_params, cfg, tokens, use_kernel=use_kernel,
-                          remat=remat)
-    return aux_head_loss(aux_params, cfg, acts, labels), acts
+    acts = device_forward(dev_params, cfg, tokens, frontend=frontend,
+                          use_kernel=use_kernel, remat=remat)
+    return aux_head_loss(aux_params, cfg, acts, labels,
+                         frontend=frontend), acts
+
+
+def _guard_dead_rows(h, *rows):
+    """Zero the input gradient of the ring's unwritten rows at ``h``, the
+    output of a stack fed ``rows`` (the acts, and a VLM's frontend).  Such
+    a row is all zero in every input and stays zero through every block,
+    so its share of every param gradient is exactly 0.  Its input
+    gradient, though, grows by rsqrt(eps) = 1e3 per RMSNorm; past ~13
+    blocks it overflows f32 and 0 * inf turns every param gradient into
+    NaN (the JAX reference does so at smollm's full depth).  Zeroing it
+    keeps every gradient the reference computes where it stays finite."""
+    if h.requires_grad:
+        live = torch.stack([r.flatten(1).ne(0).any(dim=1) for r in rows]) \
+            .any(dim=0).to(h.dtype)[:, None, None]
+        h.register_hook(lambda g: g * live)
+    return h
+
+
+def _head(srv_params: dict) -> dict:
+    return {"lm_head": srv_params["lm_head"]} if "lm_head" in srv_params \
+        else {"embed": srv_params["embed_out"]}
 
 
 def server_forward_loss(srv_params: dict, cfg: ArchConfig, acts, labels, *,
-                        use_kernel: bool = False, remat=True):
+                        frontend=None, use_kernel: bool = False, remat=True):
     """Server-side objective F_s (Eq. 5) on detached activations: no
-    gradient ever flows back to the devices."""
+    gradient ever flows back to the devices.  ``frontend`` feeds the VLM's
+    server-side cross blocks."""
     acts = acts.detach()
     h = _run_stack(srv_params["blocks"], cfg, acts, positions=_positions(acts),
-                   use_kernel=use_kernel, remat=remat)
-    if h.requires_grad:
-        # Rows of the ring that no group has written yet are all zero and
-        # stay zero through every block, so their share of every param
-        # gradient is exactly 0.  Their input gradient, though, grows by
-        # rsqrt(eps) = 1e3 per RMSNorm; past ~13 blocks it overflows f32
-        # and 0 * inf turns every param gradient into NaN (the JAX
-        # reference does so at smollm's full depth).  Zeroing it keeps
-        # every gradient the reference computes where it stays finite.
-        live = acts.flatten(1).ne(0).any(dim=1).to(h.dtype)[:, None, None]
-        h.register_hook(lambda g: g * live)
+                   frontend=frontend, use_kernel=use_kernel, remat=remat)
+    h = _guard_dead_rows(h, acts, *(() if frontend is None else (frontend,)))
     h = rmsnorm_apply(srv_params["final_norm"], h)
-    head = {"lm_head": srv_params["lm_head"]} if "lm_head" in srv_params \
-        else {"embed": srv_params["embed_out"]}
+    return chunked_ce_loss(_head(srv_params), cfg, h, labels)
+
+
+def server_encdec_loss(srv_params: dict, cfg: ArchConfig, acts, tokens,
+                       labels, *, use_kernel: bool = False, remat=True):
+    """Server-side objective of an enc-dec arch (whisper): finish the
+    encoder on the devices' detached activations, then run the decoder on
+    ``tokens`` with cross-attention to the final encoder states, and take
+    the next-token CE against ``labels``."""
+    acts = acts.detach()
+    enc = _run_stack(srv_params["blocks"], cfg, acts,
+                     positions=_positions(acts), use_kernel=use_kernel,
+                     remat=remat)
+    enc = rmsnorm_apply(srv_params["final_norm"], _guard_dead_rows(enc, acts))
+    head = _head(srv_params)
+    h = head["embed"][tokens] if "embed" in head else head["lm_head"].T[tokens]
+    h = _run_stack(srv_params["dec_blocks"], _decoder_cfg(cfg), h,
+                   positions=_positions(h), frontend=enc,
+                   use_kernel=use_kernel, remat=remat)
+    h = rmsnorm_apply(srv_params["dec_norm"], h)
     return chunked_ce_loss(head, cfg, h, labels)

@@ -1,10 +1,12 @@
 """The torch port's model functions against the JAX package's, on the same
 params (converted from the JAX init) and the same numpy inputs, for smoke
-smollm-135m, mamba2-780m, qwen3-32b and gemma2-27b: attention (with
-qk-norm, and with soft-cap and sliding window), the MLPs (SwiGLU, GeGLU,
-GELU), the Mamba2 block, the capped CE over the tied and the untied head,
-and the two halves' losses with their gradients, each with the kernel ops
-(flash attention, SSD) on and off.  Tolerance: the
+smollm-135m, mamba2-780m, qwen3-32b, gemma2-27b, llama-3.2-vision-90b and
+whisper-tiny: attention (with qk-norm, and with soft-cap and sliding
+window), the gated cross block, the MLPs (SwiGLU, GeGLU, GELU), the Mamba2
+block, the capped CE over the tied and the untied head, the next-frame aux
+MSE, and the two halves' losses with their gradients (the VLM's with its
+frontend, whisper's encoder prefix on frames and its enc-dec server loss),
+each with the kernel ops (flash attention, SSD) on and off.  Tolerance: the
 reference's own gradient tolerance, 1e-4 (``tests/test_kernel_grads.py``
 GTOL); float32 matmuls of XLA and of torch on the CPU differ in their last
 bits.
@@ -36,7 +38,10 @@ ARCH = "smollm-135m"
 MAMBA = "mamba2-780m"
 QWEN3 = "qwen3-32b"            # qk-norm, untied head
 GEMMA2 = "gemma2-27b"          # local + global, soft-caps, GeGLU
-ALL_ARCHS = (ARCH, MAMBA, "command-r-plus-104b", QWEN3, GEMMA2)
+VISION = "llama-3.2-vision-90b"  # gated cross blocks on the frontend
+WHISPER = "whisper-tiny"       # enc-dec on the frame stub
+ALL_ARCHS = (ARCH, MAMBA, "command-r-plus-104b", QWEN3, GEMMA2, VISION,
+             WHISPER)
 B, S = 2, 16
 # (arch, use_kernel); the smollm cases keep their ids
 ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
@@ -46,7 +51,12 @@ ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
                pytest.param(QWEN3, False, id="qwen3-False"),
                pytest.param(QWEN3, True, id="qwen3-True"),
                pytest.param(GEMMA2, False, id="gemma2-False"),
-               pytest.param(GEMMA2, True, id="gemma2-True")]
+               pytest.param(GEMMA2, True, id="gemma2-True"),
+               pytest.param(VISION, False, id="vision-False"),
+               pytest.param(VISION, True, id="vision-True")]
+# whisper's server half is server_encdec_loss, tested on its own
+WHISPER_KERNEL = [pytest.param(WHISPER, False, id="whisper-False"),
+                  pytest.param(WHISPER, True, id="whisper-True")]
 
 
 def _close(got, want, tol=TOL):
@@ -58,14 +68,19 @@ def _close(got, want, tol=TOL):
 def _setup(arch):
     cfg = jreg.smoke_config(arch)
     full = jtfm.init_params(jax.random.PRNGKey(0), cfg)
-    aux = jtfm.make_aux_params(jax.random.PRNGKey(1), cfg)
+    aux = jtfm.make_aux_params(jax.random.PRNGKey(1), cfg,
+                               regression=bool(cfg.n_decoder_layers))
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     acts = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    # the frontend stub's embeddings (F = 8 != S = 16): image patches or
+    # mel frames
+    frontend = rng.standard_normal((B, cfg.frontend_len, cfg.d_model)) \
+        .astype(np.float32) if cfg.frontend_len else None
     np_ = lambda t: jax.tree.map(np.asarray, t)
     return dict(cfg=cfg, full=np_(full), aux=np_(aux), tokens=tokens,
-                labels=labels, acts=acts)
+                labels=labels, acts=acts, frontend=frontend)
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +106,11 @@ def test_smoke_and_full_configs_match_jax():
                 ta = dataclasses.asdict(t.attn_cfg(mixer))
                 ja = dataclasses.asdict(j.attn_cfg(mixer))
                 assert ta == {k: ja[k] for k in ta}, (arch, name, mixer)
+            tc = dataclasses.asdict(t.cross_cfg())
+            jc = dataclasses.asdict(j.cross_cfg())
+            assert tc == {k: jc[k] for k in tc} and not tc["causal"]
+            # whisper's family is "audio": its encoder is causal there too
+            assert t.attn_cfg("attn").causal
             assert dataclasses.asdict(t.mlp_cfg()) == \
                 dataclasses.asdict(j.mlp_cfg())
             if t.ssm_state:
@@ -263,7 +283,8 @@ def test_chunked_ce_loss_final_softcap_matches_jax(tie, cap):
         assert abs(uncapped.item() - loss.item()) > 1.0
 
 
-@pytest.mark.parametrize("arch", ["command-r-plus-104b", QWEN3, GEMMA2])
+@pytest.mark.parametrize("arch", ["command-r-plus-104b", QWEN3, GEMMA2,
+                                  VISION, WHISPER])
 def test_convert_goes_across_by_key(arch):
     """The JAX init converted to the port holds the same leaves under the
     same keys (q_norm, k_norm, lm_head included), and the port's own init
@@ -296,15 +317,29 @@ def test_convert_goes_across_by_key(arch):
     _close(state_to_numpy((dev, srv)), (jdev, jsrv), tol=0)
 
 
-@pytest.mark.parametrize("arch,use_kernel", ARCH_KERNEL)
+def _torch_input(x):
+    if x is None:
+        return None
+    return torch.from_numpy(x).long() if x.dtype == np.int32 else \
+        torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("arch,use_kernel", ARCH_KERNEL + WHISPER_KERNEL)
 def test_device_train_loss_matches_jax(arch, use_kernel):
+    """The device half: the token embed, the device period and the aux
+    network; llama-vision's cross blocks (one in its period, and the aux
+    block) read the frontend; whisper's encoder prefix is fed the frames,
+    which are its aux labels too (no embed; next-frame MSE)."""
     setup = _setup(arch)
     cfg = setup["cfg"]
     dev, _ = jtfm.split_params(setup["full"], cfg, 1)
-    tok, lab = setup["tokens"], setup["labels"]
+    tok, lab, fe = setup["tokens"], setup["labels"], setup["frontend"]
+    if cfg.n_decoder_layers:
+        tok, lab, fe = fe, fe, None
+        assert "embed" not in dev
 
     def jloss(d, a):
-        return jtfm.device_train_loss(d, a, cfg, tok, lab,
+        return jtfm.device_train_loss(d, a, cfg, tok, lab, frontend=fe,
                                       use_kernel=use_kernel)
     (want_loss, want_acts), want_g = jax.jit(jax.value_and_grad(
         jloss, argnums=(0, 1), has_aux=True))(dev, setup["aux"])
@@ -312,8 +347,8 @@ def test_device_train_loss_matches_jax(arch, use_kernel):
     d = _leaves_grad(state_from_numpy(dev, "cpu"))
     a = _leaves_grad(state_from_numpy(setup["aux"], "cpu"))
     loss, acts = ttfm.device_train_loss(
-        d, a, treg.smoke_config(arch), torch.from_numpy(tok).long(),
-        torch.from_numpy(lab).long(), use_kernel=use_kernel)
+        d, a, treg.smoke_config(arch), _torch_input(tok), _torch_input(lab),
+        frontend=_torch_input(fe), use_kernel=use_kernel)
     loss.backward()
     _close(loss.item(), want_loss)
     _close(acts.detach().numpy(), want_acts)
@@ -322,17 +357,20 @@ def test_device_train_loss_matches_jax(arch, use_kernel):
 
 @pytest.mark.parametrize("arch,use_kernel", ARCH_KERNEL)
 def test_server_forward_loss_matches_jax(arch, use_kernel):
+    """The server half and its head; llama-vision's server cross block
+    reads the frontend."""
     setup = _setup(arch)
     cfg = setup["cfg"]
     _, srv = jtfm.split_params(setup["full"], cfg, 1)
-    acts, lab = setup["acts"], setup["labels"]
+    acts, lab, fe = setup["acts"], setup["labels"], setup["frontend"]
     want, want_g = jax.jit(jax.value_and_grad(
-        lambda s: jtfm.server_forward_loss(s, cfg, acts, lab,
+        lambda s: jtfm.server_forward_loss(s, cfg, acts, lab, frontend=fe,
                                            use_kernel=use_kernel)))(srv)
     s = _leaves_grad(state_from_numpy(srv, "cpu"))
     loss = ttfm.server_forward_loss(s, treg.smoke_config(arch),
                                     torch.from_numpy(acts),
                                     torch.from_numpy(lab).long(),
+                                    frontend=_torch_input(fe),
                                     use_kernel=use_kernel)
     loss.backward()
     _close(loss.item(), want)
@@ -454,3 +492,123 @@ def test_server_grads_on_unwritten_ring_rows(n_layers):
             torch.from_numpy(acts[:1]), torch.from_numpy(labels[:1]).long()
         ).backward()
         _close(got_g, state_to_numpy(tree_map(lambda x: x.grad / 2, s1)))
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention, the frontend and the enc-dec server loss
+# ---------------------------------------------------------------------------
+
+def _jvg(fn, *args):
+    """JAX value and gradients of fn's scalar over every arg; fn returns
+    (scalar, aux)."""
+    return jax.jit(jax.value_and_grad(
+        fn, argnums=tuple(range(len(args))), has_aux=True))(*args)
+
+
+def _grads(tree):
+    return state_to_numpy(tree_map(lambda x: x.grad, tree))
+
+
+@pytest.mark.parametrize("arch,stack,pos", [(VISION, "blocks", 4),
+                                            (WHISPER, "dec_blocks", 1)],
+                         ids=["llama-vision", "whisper-decoder"])
+def test_cross_block_matches_jax(arch, stack, pos):
+    """The gated cross block, h + tanh(gate) * cross_attn(ln1(h),
+    frontend) and its FFN, at S = 16 queries over F = 8 frontend positions
+    (no RoPE, no mask), with the gradients of its params, h and the
+    frontend.  The gate is set to 0.7: at its zero init a wrong
+    cross-attention would pass."""
+    st = _setup(arch)
+    cfg = st["cfg"] if stack == "blocks" else jtfm._decoder_cfg(st["cfg"])
+    tcfg = treg.smoke_config(arch)
+    tcfg = tcfg if stack == "blocks" else ttfm._decoder_cfg(tcfg)
+    assert cfg.pattern[pos] == ("cross", "dense")
+    p = jax.tree.map(lambda x: np.array(x[0]), st["full"][stack][pos])
+    p["gate"] = np.float32(0.7)
+    h, fe = st["acts"], st["frontend"]
+    assert fe.shape[1] != h.shape[1]
+    r = np.random.default_rng(8).standard_normal(h.shape).astype(np.float32)
+
+    def jloss(p, h, fe):
+        y, _ = jtfm._apply_block(p, cfg, "cross", "dense", h,
+                                 positions=np.arange(S)[None], frontend=fe)
+        return jax.numpy.sum(y * r), y
+    (_, want), want_g = _jvg(jloss, p, h, fe)
+    tp = _leaves_grad(state_from_numpy(p, "cpu"))
+    th, tfe = (torch.from_numpy(x).requires_grad_() for x in (h, fe))
+    got = ttfm._apply_block(tp, tcfg, "cross", "dense", th,
+                            positions=ttfm._positions(th), frontend=tfe)
+    torch.sum(got * torch.from_numpy(r)).backward()
+    _close(got.detach().numpy(), want)
+    _close((_grads(tp), th.grad.numpy(), tfe.grad.numpy()), want_g)
+    assert abs(float(want_g[0]["gate"])) > 1e-3     # the gate trains
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("dead_row", [False, True],
+                         ids=["live", "unwritten-row"])
+def test_server_encdec_loss_matches_jax(use_kernel, dead_row):
+    """Whisper's server objective: the encoder's last layer on the
+    devices' acts (F = 8 frames), the final norm, then the decoder on the
+    tokens (S = 16) cross-attending to the encoder states, CE on the tied
+    head; value and gradients.  With an unwritten ring row (acts, tokens
+    and labels all zero) the encoder's input row is all zero and the
+    port's dead-row guard must keep every gradient the reference
+    computes (finite at this depth)."""
+    st = _setup(WHISPER)
+    cfg = st["cfg"]
+    _, srv = jtfm.split_params(st["full"], cfg, 1)
+    acts = st["frontend"].copy()
+    tok, lab = st["tokens"].copy(), st["labels"].copy()
+    if dead_row:
+        acts[1], tok[1], lab[1] = 0.0, 0, 0
+    (want, _), want_g = _jvg(lambda s: (jtfm.server_encdec_loss(
+        s, cfg, acts, tok, lab, use_kernel=use_kernel), 0.0), srv)
+    assert all(np.isfinite(g).all() for g in jax.tree.leaves(want_g))
+    s = _leaves_grad(state_from_numpy(srv, "cpu"))
+    loss = ttfm.server_encdec_loss(
+        s, treg.smoke_config(WHISPER), torch.from_numpy(acts),
+        torch.from_numpy(tok).long(), torch.from_numpy(lab).long(),
+        use_kernel=use_kernel)
+    loss.backward()
+    _close(loss.item(), want)
+    _close((_grads(s),), want_g)
+    assert {"dec_blocks", "dec_norm", "embed_out"} <= set(srv)
+
+
+def test_aux_head_loss_regression_matches_jax():
+    """Whisper's aux network on the encoder prefix: its block, the norm
+    and the factorized head back to d_model (``head_reg``), MSE against
+    the next input frame; value and the gradients of the aux params, the
+    acts and the frames."""
+    st = _setup(WHISPER)
+    aux, acts, frames = st["aux"], st["acts"][:, :8], st["frontend"]
+    assert "head_reg" in aux and "head_out" not in aux
+
+    def jloss(a, x, f):
+        return jtfm.aux_head_loss(a, st["cfg"], x, f), 0.0
+    (want, _), want_g = _jvg(jloss, aux, acts, frames)
+    ta = _leaves_grad(state_from_numpy(aux, "cpu"))
+    tx, tf = (torch.from_numpy(x).requires_grad_() for x in (acts, frames))
+    loss = ttfm.aux_head_loss(ta, treg.smoke_config(WHISPER), tx, tf)
+    loss.backward()
+    _close(loss.item(), want)
+    _close((_grads(ta), tx.grad.numpy(), tf.grad.numpy()), want_g)
+    mine = ttfm.make_aux_params(torch.Generator().manual_seed(0),
+                                treg.smoke_config(WHISPER), regression=True)
+    assert set(mine) == set(aux) and mine["head_reg"].shape == \
+        aux["head_reg"].shape
+
+
+@pytest.mark.parametrize("arch", [VISION, WHISPER])
+def test_frontend_split_and_merge_round_trip(arch):
+    """Split and merge of the VLM (device embed, untied head on the
+    server) and the enc-dec (no device embed; the decoder and the tied
+    head on the server) give the JAX split and the full params back."""
+    st = _setup(arch)
+    cfg = treg.smoke_config(arch)
+    dev, srv = ttfm.split_params(state_from_numpy(st["full"], "cpu"), cfg, 1)
+    jdev, jsrv = jtfm.split_params(st["full"], st["cfg"], 1)
+    _close(state_to_numpy((dev, srv)), (jdev, jsrv), tol=0)
+    _close(state_to_numpy(ttfm.merge_params(dev, srv, cfg)), st["full"],
+           tol=0)

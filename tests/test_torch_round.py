@@ -9,8 +9,13 @@ has Explicit axes under jax 0.9, on which the reference step does not
 build.  Round 2 drops group 1 and round 3 restores it, so retention and
 non-uniform staleness weights run too.  Smoke smollm-135m, mamba2-780m,
 qwen3-32b (qk-norm, the untied lm_head on the server) and gemma2-27b
-(local and global blocks, soft-caps, GeGLU) run with their kernel op
+(local and global blocks, soft-caps, GeGLU), llama-3.2-vision-90b (gated
+cross blocks reading the frontend, which the ring carries) and whisper-tiny
+(the encoder prefix on frames, its next-frame aux MSE, the decoder on the
+server; the ring carries the decoder tokens) run with their kernel op
 (flash attention, SSD) on and off, and command-r-plus-104b with it off.
+The batch's ``frontend`` is drawn from the seed here, not zeros as the
+drivers feed it, so the cross blocks and the encoder train on data.
 """
 import dataclasses
 
@@ -55,28 +60,19 @@ def _assert_plans_equal(pt, pj):
                                       err_msg=f.name)
 
 
-@pytest.mark.parametrize("arch,use_kernel,opts", [
-    ("smollm-135m", False, {}), ("smollm-135m", True, {}),
-    ("smollm-135m", False, dict(server_accum=True, pipeline_acts=False)),
-    ("mamba2-780m", False, {}), ("mamba2-780m", True, {}),
-    ("smollm-135m", False, dict(agg_compress=True)),
-    ("smollm-135m", False, dict(server_opt="adamw")),
-    ("smollm-135m", False, dict(remat=True)),
-    ("smollm-135m", False, dict(remat=False)),
-    ("qwen3-32b", False, {}), ("qwen3-32b", True, {}),
-    ("gemma2-27b", False, {}), ("gemma2-27b", True, {}),
-    ("command-r-plus-104b", False, {}),
-], ids=["plain", "kernel", "accum-nopipe", "mamba2-plain", "mamba2-kernel",
-        "agg-compress", "adamw", "remat-True", "remat-False", "qwen3-plain",
-        "qwen3-kernel", "gemma2-plain", "gemma2-kernel",
-        "command-r-plus-plain"])
-def test_round_matches_jax(arch, use_kernel, opts):
+def _rounds(arch, use_kernel, opts, perturb=None):
+    """Both packages' rounds from the JAX init, in lockstep under equal
+    plans: yields (round, port metrics, JAX metrics, port state, JAX
+    state) as numpy after each round.  ``perturb`` edits the port's init
+    state in place before the first round."""
     kw = dict(l_split=1, n_groups=2, seq_len=16, per_group_batch=4, H=2,
               omega=2, use_kernel=use_kernel, **opts)
     jcfg = JF.FedStepConfig(arch=jreg.smoke_config(arch), **kw)
     tcfg = TF.FedStepConfig(arch=treg.smoke_config(arch), **kw)
     jitted, jstate, s_spec = _jax_step(jcfg)
     tstate = state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
+    if perturb is not None:
+        perturb(tstate)
     step = TF.make_train_step(tcfg)
     jplane = jcp.ControlPlane(2, jcfg.omega, jcfg.H)
     tplane = tcp.ControlPlane(2, tcfg.omega, tcfg.H)
@@ -101,17 +97,53 @@ def test_round_matches_jax(arch, use_kernel, opts):
         tbatch = {"tokens": torch.from_numpy(tokens),
                   "labels": torch.from_numpy(labels),
                   **pt.batch_fields("cpu")}
+        if tcfg.arch.frontend_len:
+            frontend = rng.standard_normal(
+                (G, H, b, tcfg.arch.frontend_len, tcfg.arch.d_model)) \
+                .astype(np.float32)
+            jbatch["frontend"] = frontend
+            tbatch["frontend"] = torch.from_numpy(frontend)
         jstate, jm = jitted(jstate, jbatch)
         tstate, tm = step(tstate, tbatch)
         jplane.finish_round(active=active)
         tplane.finish_round(active=active)
-        _close({k: float(v) for k, v in tm.items()},
-               {k: float(v) for k, v in jm.items()}, f"round {r} metrics")
-        _close(state_to_numpy(tstate), jax.tree.map(np.asarray, jstate),
-               f"round {r} state")
+        # copies: the port's step updates its state in place
+        yield (r, {k: float(v) for k, v in tm.items()},
+               {k: float(v) for k, v in jm.items()},
+               jax.tree.map(np.copy, state_to_numpy(tstate)),
+               jax.tree.map(np.asarray, jstate))
+
+
+@pytest.mark.parametrize("arch,use_kernel,opts", [
+    ("smollm-135m", False, {}), ("smollm-135m", True, {}),
+    ("smollm-135m", False, dict(server_accum=True, pipeline_acts=False)),
+    ("mamba2-780m", False, {}), ("mamba2-780m", True, {}),
+    ("smollm-135m", False, dict(agg_compress=True)),
+    ("smollm-135m", False, dict(server_opt="adamw")),
+    ("smollm-135m", False, dict(remat=True)),
+    ("smollm-135m", False, dict(remat=False)),
+    ("qwen3-32b", False, {}), ("qwen3-32b", True, {}),
+    ("gemma2-27b", False, {}), ("gemma2-27b", True, {}),
+    ("command-r-plus-104b", False, {}),
+    ("llama-3.2-vision-90b", False, {}), ("llama-3.2-vision-90b", True, {}),
+    ("whisper-tiny", False, {}), ("whisper-tiny", True, {}),
+], ids=["plain", "kernel", "accum-nopipe", "mamba2-plain", "mamba2-kernel",
+        "agg-compress", "adamw", "remat-True", "remat-False", "qwen3-plain",
+        "qwen3-kernel", "gemma2-plain", "gemma2-kernel",
+        "command-r-plus-plain", "llama-vision-plain", "llama-vision-kernel",
+        "whisper-plain", "whisper-kernel"])
+def test_round_matches_jax(arch, use_kernel, opts):
+    for r, tm, jm, tstate, jstate in _rounds(arch, use_kernel, opts):
+        _close(tm, jm, f"round {r} metrics")
+        _close(tstate, jstate, f"round {r} state")
     # an untied head lives on the server only: aggregation never sees it
-    assert ("lm_head" in tstate["srv"]) == (not tcfg.arch.tie_embeddings)
+    cfg = treg.smoke_config(arch)
+    assert ("lm_head" in tstate["srv"]) == (not cfg.tie_embeddings)
     assert "lm_head" not in tstate["dev"]
+    # an encoder prefix has no token embedding; the decoder is server-only
+    encdec = bool(cfg.n_decoder_layers)
+    assert ("embed" in tstate["dev"]) != encdec
+    assert ("dec_blocks" in tstate["srv"]) == encdec
 
 
 def _embed_out_grads(srv, arch, jarch, acts, labels):
@@ -233,6 +265,53 @@ def test_adamw_row_gap_is_float32_roundoff(monkeypatch):
           f"{float(acts.abs().max()):.3e}")
 
 
+def _tol_ratio(got, want):
+    """max |got - want| / (TOL + TOL |want|): above 1 fails ``_close``."""
+    return float(np.max(np.abs(got - want) / (TOL + TOL * np.abs(want))))
+
+
+def test_vision_ring_acts_gap_is_float32_roundoff():
+    """Why the ``llama-vision-kernel`` row of ``test_round_matches_jax``
+    misses 1e-4 on one leaf (ROADMAP C5): the ring's acts after round 2,
+    the output of smoke llama-vision's five-block device half (four
+    attention blocks and a cross block), by about 1.3x the tolerance.
+
+    Witnesses, on the row's data:
+    - both losses and every other state leaf agree at 1e-4 in all three
+      rounds, and the acts do after rounds 0 and 1;
+    - the port against itself, with one float32 ulp added to every element
+      of the init's device embed and nothing else changed, moves the same
+      leaf past 1e-4 too, and by more than half the gap to the JAX round:
+      at this depth the leaf carries float32's own rounding from the
+      embed's updates (each is scaled by the first RMSNorm's 1/rms, ~50 at
+      the embed's init scale) through five blocks.
+    """
+    arch = "llama-3.2-vision-90b"
+
+    def ulp_up(state):
+        e = state["dev"]["embed"]
+        e.copy_(torch.nextafter(e, torch.full_like(e, np.inf)))
+    ref_run = list(_rounds(arch, True, {}))
+    ulp_run = list(_rounds(arch, True, {}, perturb=ulp_up))
+    for r, tm, jm, tstate, jstate in ref_run:
+        _close(tm, jm, f"round {r} metrics")
+        acts = tstate["act_buf"].pop("acts"), jstate["act_buf"].pop("acts")
+        _close(tstate, jstate, f"round {r} state but the ring's acts")
+        if r < 2:
+            _close(*acts, f"round {r} ring acts")
+        worst = max((_tol_ratio(g, w), jax.tree_util.keystr(k)) for (k, w), g
+                    in zip(jax.tree_util.tree_flatten_with_path(jstate)[0],
+                           jax.tree.leaves(tstate)))
+        print(f"round {r}: ring acts {_tol_ratio(*acts):.3f} x TOL (max "
+              f"abs {np.abs(acts[0] - acts[1]).max():.3e}); the worst other"
+              f" leaf {worst[1]} {worst[0]:.3f} x TOL")
+    gap = _tol_ratio(*acts)
+    ulp = _tol_ratio(ulp_run[-1][3]["act_buf"]["acts"], acts[0])
+    print(f"round 2 ring acts: port vs JAX {gap:.3f} x TOL; port vs port "
+          f"with one ulp on the init embed {ulp:.3f} x TOL")
+    assert ulp > 1.0 and ulp > 0.5 * gap
+
+
 @pytest.mark.parametrize("omega,policy", [(1, "counter"), (2, "counter"),
                                           (3, "fifo")])
 def test_control_plane_plans_match_jax(omega, policy):
@@ -322,9 +401,27 @@ def test_driver_runs_dense_attention_archs(arch):
                for k in ("d_loss", "s_loss"))
 
 
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
+def test_driver_runs_frontend_archs(arch):
+    """The driver feeds zero frontends, as the JAX driver does: whisper's
+    encoder then computes on zeros and its next-frame aux loss is exactly
+    0."""
+    out = ttrain.main(SMOKE_ARGS + ["--rounds", "2", "--arch", arch,
+                                    "--use-kernel", "--p-drop", "0.5"])
+    assert len(out["history"]) == 2
+    assert all(np.isfinite(m[k]) for m in out["history"]
+               for k in ("d_loss", "s_loss"))
+    if arch == "whisper-tiny":
+        assert all(m["d_loss"] == 0.0 for m in out["history"])
+    ring = out["state"]["act_buf"]
+    assert ("frontend" in ring) == (arch != "whisper-tiny")
+    assert ("tokens" in ring) == (arch == "whisper-tiny")
+
+
 def test_driver_refuses_other_archs():
     with pytest.raises(KeyError):
-        ttrain.main(SMOKE_ARGS + ["--rounds", "1", "--arch", "whisper-tiny"])
+        ttrain.main(SMOKE_ARGS + ["--rounds", "1", "--arch",
+                                  "jamba-1.5-large-398b"])
 
 
 def test_scheduler_and_flow_control_match_jax():
@@ -425,3 +522,38 @@ def test_quant_matches_jax():
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(TF._dequant((tq, ts)).numpy(),
                                   np.asarray(JF._dequant((jq, js))))
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-780m", "gemma2-27b",
+                                  "llama-3.2-vision-90b", "whisper-tiny"])
+def test_chip_smoke_reckons_kernel_launches(arch, monkeypatch):
+    """``chip_smoke.launches_per_round``, which the card holds each path's
+    counted launches to, against the kernel calls of one smoke round on the
+    CPU (each wrapper runs its plain version there): self-attention and
+    Mamba blocks on both halves, whisper's decoder self-attention on the
+    server, never a cross block or the aux block."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as ssd_k
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = TF.FedStepConfig(arch=treg.smoke_config(arch), l_split=1,
+                           n_groups=2, seq_len=16, per_group_batch=4, H=2,
+                           omega=1, use_kernel=True)
+    calls = {}
+    for name in (*fa.launches, *ssd_k.launches):
+        inner = getattr(ref, name)
+        monkeypatch.setattr(ref, name, lambda *a, _n=name, _f=inner, **k: (
+            calls.__setitem__(_n, calls.get(_n, 0) + 1), _f(*a, **k))[1])
+    state = TF.init_train_state(torch.Generator().manual_seed(0), cfg)
+    batch = ttrain._make_batch(
+        cfg, ttrain._group_streams(cfg), np.random.default_rng(0),
+        tcp.ControlPlane(2, 1, 2).plan_round(), "cpu")
+    TF.make_train_step(cfg)(state, batch)
+    n, want = cs.launches_per_round(cfg, (fa, ssd_k))
+    assert n > 0 and {k: calls.get(k, 0) for k in want} == want
