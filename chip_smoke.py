@@ -26,14 +26,23 @@ exits non-zero:
    S=6144, where the window cuts.  Then the rows of the llama-3.2-vision
    and whisper paths (``FRONTEND_CASES``): 64:8 heads at hd 128 with
    micro-batch 1, and whisper's 6:6 heads at hd 64 over 1500 frames
-   (batch 8 and 2) and 448 tokens (batch 8).  At the main shapes and the
-   rows in ``WIDE_TIMED`` and ``FRONTEND_CASES``,
+   (batch 8 and 2) and 448 tokens (batch 8).  Then the rows of the MoE
+   paths (``MOE_CASES``): qwen3-moe's 64:4 heads (group 16) and llama4's
+   40:8 heads (group 5) at hd 128, server and device halves.  At the main
+   shapes and the rows in ``WIDE_TIMED``, ``FRONTEND_CASES`` and
+   ``MOE_TIMED``,
    times (CUDA events, median of 30 after warm-up) beside the plain
    version, one PyTorch call for the same function where there is one
    (SDPA) and the card's bound: the least time with the products as 3xTF32
    on the tensor cores (``bound_ms``) and on the CUDA cores
    (``bound_simt_ms``); and the port's whole attention backward (delta,
-   dq, dk/dv) beside SDPA's backward.
+   dq, dk/dv) beside SDPA's backward.  Last, the MoE row: the port's
+   ``moe_apply_grouped`` at qwen3-moe's server shape with phase 4c's
+   expert cut (x (4, 1024, 4096), 32 experts, top-8, d_ff 1536, so
+   capacity 1024); forward and backward twice on the same inputs, which
+   must be bit-identical, the second under
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host sync fails), and
+   the dropped assignments and times printed.
 4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
    same with l_split 6): two rounds with the kernels and two with the plain
@@ -53,8 +62,13 @@ exits non-zero:
    blocks on the frontend stub) at every published width, cut in depth
    (``WIDE_PATHS``: 2, 4 and 4 layers, one period on each side of the
    split; llama-vision's period cut from five blocks to one attention
-   block and the cross block) and run at G=2, and whisper-tiny
-   (encoder-decoder on the frame stub) with nothing cut: the same
+   block and the cross block) and run at G=2, whisper-tiny
+   (encoder-decoder on the frame stub) with nothing cut, and the MoE
+   archs qwen3-moe-235b-a22b and llama4-maverick-400b-a17b at every
+   published width but the expert count (2 and 4 layers; 128 experts cut
+   to one chip's share of an expert-parallel layer, 32 and 8; each half's
+   capacity printed; the plain run replays the kernel run's expert
+   choices, ``replay_route``): the same
    kernels-vs-plain check and profiled round, and three driver rounds
    through the ``RoundExecutor`` at window 2 (steady tok/s, device ms per
    round, peak memory).  The cuts are printed on the path's first line.
@@ -128,7 +142,11 @@ DRIVER_ROUNDS = {"smollm-135m": 5, "mamba2-780m": 3}   # per driver run
 # period: its published five-block period needs two periods, 10 layers,
 # and at f32 their device side alone (about 2 x 25 GB) does not fit beside
 # the server's params and gradients.  whisper-tiny runs whole, with 448
-# tokens, Whisper's text context (arXiv:2212.04356).
+# tokens, Whisper's text context (arXiv:2212.04356).  The MoE archs keep
+# every width but the expert count: one expert layer of qwen3-moe is 9.66
+# GB in f32 and one of llama4-maverick 64.4 GB, so each keeps one chip's
+# share of an expert-parallel layer (128 experts over 4 chips: 32; over
+# 16: 8), and the router picks among the experts held here.
 WIDE_ARGS = ["--mode", "pod", "--full", "--H", "4", "--omega", "1",
              "--use-kernel", "--device", "cuda"]
 WIDE_PATHS = {
@@ -138,6 +156,9 @@ WIDE_PATHS = {
                                                        ("cross", "dense"))),
                              1, 2, 4, 1024),
     "whisper-tiny": ({}, 1, 4, 8, 448),
+    "qwen3-moe-235b-a22b": (dict(n_layers=2, n_experts=32), 1, 2, 8, 1024),
+    "llama4-maverick-400b-a17b": (dict(n_layers=4, n_experts=8), 1, 2, 4,
+                                  1024),
 }
 WIDE_DRIVER_ROUNDS = 3
 # Params after two rounds, kernels vs plain: max |difference| (phase 4).
@@ -247,7 +268,24 @@ FRONTEND_CASES = [
      "float32"),
     ("whisper-dec", (8, 448, 448, 6, 6, 64), dict(causal=True), "float32"),
 ]
-TIMED = WIDE_TIMED + tuple(case for case, *_ in FRONTEND_CASES)
+# The self-attention of the MoE paths (phase 4c) at hd 128: qwen3-moe's
+# 64:4 heads (group 16) on the server (batch 4) and the device
+# (micro-batch 2), and llama4-maverick's 40:8 heads (group 5), batch 2 and
+# 1.  The server rows are timed.
+MOE_CASES = [
+    ("qwen3-moe-srv", (4, 1024, 1024, 64, 4, 128), dict(causal=True),
+     "float32"),
+    ("qwen3-moe-dev", (2, 1024, 1024, 64, 4, 128), dict(causal=True),
+     "float32"),
+    ("llama4-srv", (2, 1024, 1024, 40, 8, 128), dict(causal=True),
+     "float32"),
+    ("llama4-dev", (1, 1024, 1024, 40, 8, 128), dict(causal=True),
+     "float32"),
+]
+MOE_TIMED = ("qwen3-moe-srv", "llama4-srv")
+TIMED = WIDE_TIMED + tuple(case for case, *_ in FRONTEND_CASES) + MOE_TIMED
+# The MoE row: qwen3-moe's server MoE FFN with phase 4c's expert cut.
+MOE_ROW = dict(x=(4, 1024, 4096), n_experts=32, top_k=8, d_ff=1536)
 
 
 def _inputs(torch, shape, dtype, seed):
@@ -345,8 +383,8 @@ def _ms_text(ms) -> str:
 
 def phase_kernels(torch, fa, ref) -> dict:
     record = {}
-    for seed, (case, shape, opts, dt) in enumerate(CASES + WIDE_CASES
-                                                   + FRONTEND_CASES):
+    for seed, (case, shape, opts, dt) in enumerate(
+            CASES + WIDE_CASES + FRONTEND_CASES + MOE_CASES):
         dtype = getattr(torch, dt)
         q, k, v, do = _inputs(torch, shape, dtype, seed)
         print(f"[kernels] {case}: B,S,Skv,H,Hkv,hd={shape} {opts} {dt}",
@@ -402,6 +440,66 @@ def phase_kernels(torch, fa, ref) -> dict:
             dv_r, delta, bwd_in, runs
         torch.cuda.empty_cache()
     return record
+
+
+def phase_moe(torch) -> None:
+    """The MoE row (``MOE_ROW``): forward and backward of
+    ``moe_apply_grouped`` twice on the same inputs, bit-identical, the
+    second pass with any host sync an error; dropped assignments, ms."""
+    from repro_torch.models import mlp
+    B, S, D = MOE_ROW["x"]
+    cfg = mlp.MoeConfig(d_model=D, d_ff=MOE_ROW["d_ff"],
+                        n_experts=MOE_ROW["n_experts"],
+                        top_k=MOE_ROW["top_k"])
+    E, C = cfg.n_experts, mlp.moe_capacity(cfg, B * S)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {k: v.requires_grad_()
+              for k, v in mlp.moe_init(gen, cfg).items()}
+    x = torch.randn(B, S, D, generator=gen, device="cuda").requires_grad_()
+    dy = torch.randn(B, S, D, generator=gen, device="cuda")
+    leaves = [x, *params.values()]
+
+    def fwd():
+        return mlp.moe_apply_grouped(params, cfg, x)
+
+    def fwd_bwd():
+        y, aux = fwd()
+        return (y, aux, *torch.autograd.grad(torch.sum(y * dy) + aux,
+                                             leaves))
+    print(f"[moe] moe_apply_grouped: x {(B, S, D)}, {E} experts, top-"
+          f"{cfg.top_k}, d_ff {cfg.d_ff}, capacity {C} per expert, f32",
+          flush=True)
+    first = fwd_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = fwd_bwd()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    names = ("y", "aux", "dx", *(f"d{k}" for k in params))
+    same = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, first,
+                                                           again)}
+    finite = all(bool(torch.isfinite(t).all()) for t in first)
+    with torch.no_grad():
+        top_idx = mlp._top_k_route(params, cfg, x.reshape(-1, D))[0]
+        counts = (top_idx.reshape(-1, 1)
+                  == torch.arange(E, device="cuda")).sum(0)
+        dropped = int(torch.clamp(counts - C, min=0).sum())
+        loads = (int(counts.min()), int(counts.max()))
+    fwd_ms = _median_ms(torch, fwd, n=10, warmup=2)
+    fwd_bwd_ms = _median_ms(torch, fwd_bwd, n=10, warmup=2)
+    print(f"[moe]   twice: bit-identical {same}; second pass under "
+          f"set_sync_debug_mode('error'): no host sync | finite {finite} | "
+          f"aux {float(first[1].detach()):.6f} | dropped {dropped} of "
+          f"{B * S * cfg.top_k} assignments (expert loads {loads[0]}"
+          f"..{loads[1]}) | forward {fwd_ms:.4f} ms, forward + backward "
+          f"{fwd_bwd_ms:.4f} ms", flush=True)
+    if not (all(same.values()) and finite):
+        raise AssertionError(f"moe_apply_grouped: two passes differ or "
+                             f"not finite: {same}, finite {finite}")
+    del first, again, params, x, dy, leaves
+    torch.cuda.empty_cache()
 
 
 SSD_CASES = [
@@ -610,19 +708,64 @@ def launches_per_round(cfg, counters) -> tuple[int, dict]:
                for c in counters for name in c.launches}
 
 
+def replay_route(torch, params, cfg, xt, chosen):
+    """``mlp._top_k_route`` with the experts ``chosen`` (T, k) in place of
+    the router's own top-k: the same softmax, the weights renormalised over
+    the k and the load-balance loss, so a token whose own choice is
+    ``chosen`` gets bit-identical values and gradients.  Returns
+    (chosen, weights, aux, n, gap): n tokens chose otherwise (experts or
+    their order), and ``gap`` is the smallest gap between adjacent
+    probabilities among the k + 1 largest of those tokens (inf if none)."""
+    E, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xt.float() @ params["router"].float(), dim=-1)
+    top_w = torch.gather(probs, 1, chosen)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    routed = (chosen[..., None] == torch.arange(E, device=xt.device)) \
+        .float().sum(1)
+    aux = E * torch.sum(routed.mean(0) / k * probs.mean(0))
+    with torch.no_grad():
+        top, own = torch.sort(probs, dim=-1, descending=True, stable=True)
+        differ = (own[:, :k] != chosen).any(-1)
+        top = top[:, :k + 1]
+        gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+        gap = torch.where(differ, gap, torch.inf).min()
+    return chosen, top_w, aux, differ.sum(), gap
+
+
 def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
     """Two rounds with the kernels and two with the plain path from the same
     state, batches and plans: the kernels launch ``want`` times a round and
     the plain path never, the losses agree within 1e-3 relative and the
     params within PARAMS_TOL and are finite.  Then one profiled round.  The
     state is drawn from the seed for each run (two copies of a full-width
-    state do not fit beside a round's gradients)."""
+    state do not fit beside a round's gradients).
+
+    On a MoE path the plain run replays the kernel run's expert choices
+    (``replay_route``): a token whose two candidate experts' probabilities
+    lie within the paths' last-bit differences would otherwise take another
+    expert, and one such token moves the params past PARAMS_TOL.  The
+    tokens whose own choice differed are counted and printed with their
+    smallest probability gap, so the comparison holds the kernels'
+    arithmetic alone."""
     import numpy as np
 
     from repro_torch.core import fedopt_step as F
     from repro_torch.core.control_plane import ControlPlane
     from repro_torch.launch import train
+    from repro_torch.models import mlp
     from repro_torch.models.common import tree_leaves
+
+    route, chosen, replayed = mlp._top_k_route, [], []
+
+    def record(params, mcfg, xt):
+        out = route(params, mcfg, xt)
+        chosen.append(out[0])
+        return out
+
+    def replay(params, mcfg, xt):
+        out = replay_route(torch, params, mcfg, xt, chosen[len(replayed)])
+        replayed.append((xt.shape[0], *out[3:]))
+        return out[:3]
 
     def fresh_state():
         torch.cuda.empty_cache()
@@ -652,14 +795,20 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
         for c in counters:
             c.reset_launches()
         losses[use_kernel] = []
-        for r, batch in enumerate(batches):
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            m = {k: float(v) for k, v in m.items()}
-            losses[use_kernel].append(m)
-            print(f"{tag} {'kernel' if use_kernel else 'plain '} round "
-                  f"{r + 1}: d_loss {m['d_loss']!r} s_loss {m['s_loss']!r} "
-                  f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if cfg.arch.n_experts:
+            mlp._top_k_route = record if use_kernel else replay
+        try:
+            for r, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                m = {k: float(v) for k, v in m.items()}
+                losses[use_kernel].append(m)
+                print(f"{tag} {'kernel' if use_kernel else 'plain '} round "
+                      f"{r + 1}: d_loss {m['d_loss']!r} s_loss "
+                      f"{m['s_loss']!r} ({time.perf_counter() - t0:.2f} s)",
+                      flush=True)
+        finally:
+            mlp._top_k_route = route
         launches = {k: v for c in counters for k, v in c.launches.items()}
         if use_kernel:
             if launches != {k: 2 * n for k, n in want.items()}:
@@ -676,6 +825,18 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
                        for x, y in zip(params(state), kernel_final))
         del state, step
     del kernel_final
+    if cfg.arch.n_experts:
+        if len(replayed) != len(chosen):
+            raise AssertionError(f"{tag} the plain run routed {len(replayed)}"
+                                 f" times, the kernel run {len(chosen)}")
+        tokens = sum(t for t, _, _ in replayed)
+        n = sum(int(d) for _, d, _ in replayed)
+        gap = min(float(g) for _, _, g in replayed)
+        print(f"{tag} router: the plain run replays the kernel run's expert "
+              f"choices ({len(chosen)} routings, {tokens:,} tokens); its own"
+              f" choice differed for {n} tokens (smallest gap between "
+              f"adjacent top-{cfg.arch.top_k + 1} probabilities among them "
+              f"{gap:.3e})", flush=True)
     print(f"{tag} launches per round {max(want.values())} of each of "
           f"{[k for k, n in want.items() if n]}, none on the plain path | "
           f"params after 2 rounds, kernel vs plain: max abs diff {diff:.3e} "
@@ -841,6 +1002,20 @@ def phase_wide(torch, arch: str, counters) -> dict:
         if a.n_layers != full.n_layers else []
     if a.pattern != full.pattern:
         cuts.append(f"period {full.period} -> {a.period} blocks")
+    moe = ""
+    if a.n_experts:
+        from repro_torch.models.mlp import moe_capacity
+        cap = lambda tokens: moe_capacity(a.moe_cfg(), tokens,
+                                          a.moe_capacity_factor)
+        tokens = cfg.micro_batch * cfg.seq_len
+        moe = (f", MoE top-{a.top_k} of {a.n_experts} experts, capacity C "
+               f"{cap(tokens)} device / {cap(cfg.n_groups * tokens)} server"
+               f" (cf {a.moe_capacity_factor})")
+    if a.n_experts != full.n_experts:
+        cuts.append(f"experts {full.n_experts} -> {a.n_experts}, one chip's "
+                    f"share of a {full.n_experts // a.n_experts}-way "
+                    "expert-parallel layer (the router picks among the "
+                    "experts held here)")
     if cfg.n_groups != 4:
         cuts.append(f"G={cfg.n_groups} (the main paths: 4)")
     if cfg.per_group_batch != 8:
@@ -852,7 +1027,7 @@ def phase_wide(torch, arch: str, counters) -> dict:
           f"qk_norm {a.qk_norm}, attn cap {a.attn_softcap}, final cap "
           f"{a.final_softcap}, window {a.window}, tied head "
           f"{a.tie_embeddings}, frontend_len {a.frontend_len}, decoder "
-          f"layers {a.n_decoder_layers} | cuts: "
+          f"layers {a.n_decoder_layers}{moe} | cuts: "
           f"{'; '.join(cuts) or 'none'} | {a.n_layers} layers "
           f"({cfg.l_split * a.period} on the device side), G="
           f"{cfg.n_groups}, batch {cfg.per_group_batch} (micro-batch "
@@ -892,6 +1067,7 @@ def main() -> int:
     phase_build(build)
     record = phase_kernels(torch, fa, ref)
     record.update(phase_ssd_kernels(torch, ssd_k, ref))
+    phase_moe(torch)
     print(f"[time] device, build and kernels: {time.perf_counter() - t0:.0f}"
           " s", flush=True)
     paths = {arch: phase_main(torch, arch, (fa, ssd_k)) for arch in MAIN_PATHS}
@@ -919,6 +1095,8 @@ def main() -> int:
                                          for c in WIDE_TIMED}
             kernels[-1]["frontend_rows"] = {c: record[name][c]
                                             for c, *_ in FRONTEND_CASES}
+            kernels[-1]["moe_rows"] = {c: record[name][c]
+                                       for c in MOE_TIMED}
     print(f"[time] total {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_name_power())

@@ -5,11 +5,13 @@ One :class:`ArchConfig` describes a model whose layer stack repeats a
 ``pattern * n_periods``.  Per-position params are stacked over periods,
 leaves shaped ``(n_periods, ...)``, as in the JAX package.  The port runs
 the ``("attn", "dense")``, ``("local", "dense")``, ``("mamba", "none")``,
-``("cross", "dense")`` and ``("attn", "none")`` blocks: decoder LMs
-(smollm, mamba2, command-r-plus, qwen3, gemma2), the VLM backbone whose
-cross blocks read the frontend stub's embeddings (llama-3.2-vision) and
-the encoder-decoder (whisper: ``n_layers`` encoder layers on the frame
-stub, ``n_decoder_layers`` decoder layers).
+``("cross", "dense")``, ``("attn", "none")`` and ``("attn", "moe")``
+blocks: decoder LMs (smollm, mamba2, command-r-plus, qwen3, gemma2), the
+mixture-of-experts LMs (qwen3-moe, llama4-maverick: ``n_experts`` experts,
+``top_k`` per token, capacity factor ``moe_capacity_factor``), the VLM
+backbone whose cross blocks read the frontend stub's embeddings
+(llama-3.2-vision) and the encoder-decoder (whisper: ``n_layers`` encoder
+layers on the frame stub, ``n_decoder_layers`` decoder layers).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from dataclasses import dataclass, replace
 
 from .attention import AttentionConfig
 from .mamba import MambaConfig
-from .mlp import MlpConfig
+from .mlp import MlpConfig, MoeConfig
 
 
 @dataclass(frozen=True)
@@ -39,6 +41,10 @@ class ArchConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     activation: str = "swiglu"
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_capacity_factor: float = 1.0
     # Mamba / SSD
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -88,6 +94,11 @@ class ArchConfig:
 
     def mlp_cfg(self) -> MlpConfig:
         return MlpConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         activation=self.activation)
+
+    def moe_cfg(self) -> MoeConfig:
+        return MoeConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         n_experts=self.n_experts, top_k=self.top_k,
                          activation=self.activation)
 
     def mamba_cfg(self) -> MambaConfig:

@@ -1,10 +1,17 @@
 """Backbone assembly and the FedOptima split API, for stacks built of the
 ("attn", "dense"), ("local", "dense"), ("mamba", "none"), ("cross",
-"dense") and ("attn", "none") blocks: global and sliding-window attention
-(with qk-norm and logit soft-caps where the arch sets them) before a dense
-FFN, the Mamba2 mixer alone, gated cross-attention to the frontend
-(``h + tanh(gate) * cross_attn(ln1(h), frontend)``, then the FFN) and
-self-attention with no FFN (whisper's decoder pattern).
+"dense"), ("attn", "none") and ("attn", "moe") blocks: global and
+sliding-window attention (with qk-norm and logit soft-caps where the arch
+sets them) before a dense FFN, the Mamba2 mixer alone, gated
+cross-attention to the frontend (``h + tanh(gate) * cross_attn(ln1(h),
+frontend)``, then the FFN), self-attention with no FFN (whisper's decoder
+pattern) and self-attention before the mixture of experts.
+
+Every block returns ``(h, aux)``: ``aux`` is a MoE block's load-balance
+loss, a 0-d tensor, and the float 0.0 elsewhere (no device op for the
+blocks without experts), summed over the stack.  Each half adds
+``MOE_AUX_WEIGHT`` times its stack's sum to its loss; the aux block's own
+is dropped, as in the JAX package.
 
 The DNN is split at a period boundary ``l_split``.  The device half is
 ``embed + blocks[:l_split]`` plus an auxiliary network (one block of the
@@ -39,11 +46,13 @@ from .attention import attention_apply, attention_init
 from .common import (dense_init, embed_init, rmsnorm_apply, rmsnorm_init,
                      softcap, tree_map)
 from .mamba import mamba_apply, mamba_init
-from .mlp import mlp_apply, mlp_init
+from .mlp import mlp_apply, mlp_init, moe_apply_grouped, moe_init
 
 #: (mixer, ffn) blocks the port runs so far.
 BLOCKS = (("attn", "dense"), ("local", "dense"), ("mamba", "none"),
-          ("cross", "dense"), ("attn", "none"))
+          ("cross", "dense"), ("attn", "none"), ("attn", "moe"))
+#: Weight of the stack's MoE load-balance loss in both halves' losses.
+MOE_AUX_WEIGHT = 0.01
 
 
 def _check_pattern(cfg: ArchConfig) -> None:
@@ -72,6 +81,9 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, mixer: str, ffn: str,
     if ffn == "dense":
         p["ln2"] = rmsnorm_init(cfg.d_model, device=dev, dtype=dtype)
         p["ffn"] = mlp_init(gen, cfg.mlp_cfg(), dtype=dtype)
+    elif ffn == "moe":
+        p["ln2"] = rmsnorm_init(cfg.d_model, device=dev, dtype=dtype)
+        p["ffn"] = moe_init(gen, cfg.moe_cfg(), dtype=dtype)
     return p
 
 
@@ -119,6 +131,8 @@ def _decoder_cfg(cfg: ArchConfig) -> ArchConfig:
 
 def _apply_block(p: dict, cfg: ArchConfig, mixer: str, ffn: str, h, *,
                  positions, frontend=None, use_kernel: bool = False):
+    """One block: (h, aux), aux the MoE load-balance loss (0.0 without)."""
+    aux = 0.0
     x = rmsnorm_apply(p["ln1"], h)
     if mixer == "mamba":
         h = h + mamba_apply(p["mixer"], cfg.mamba_cfg(), x,
@@ -132,7 +146,12 @@ def _apply_block(p: dict, cfg: ArchConfig, mixer: str, ffn: str, h, *,
                                 positions=positions, use_kernel=use_kernel)
     if ffn == "dense":
         h = h + mlp_apply(p["ffn"], cfg.mlp_cfg(), rmsnorm_apply(p["ln2"], h))
-    return h
+    elif ffn == "moe":
+        y, aux = moe_apply_grouped(p["ffn"], cfg.moe_cfg(),
+                                   rmsnorm_apply(p["ln2"], h),
+                                   capacity_factor=cfg.moe_capacity_factor)
+        h = h + y
+    return h, aux
 
 
 def _save_kernel_out(ctx, op, *args, **kwargs):
@@ -150,26 +169,33 @@ _selective_context = functools.partial(create_selective_checkpoint_contexts,
 
 def _run_stack(blocks: list, cfg: ArchConfig, h, *, positions,
                frontend=None, use_kernel: bool = False, remat=True):
+    """(h, aux): the stack's output and its blocks' summed MoE loss."""
     _check_pattern(cfg)
 
     def period_fn(h, stacks_slice):
+        aux_total = 0.0
         for pos, (mixer, ffn) in enumerate(cfg.pattern):
-            h = _apply_block(stacks_slice[pos], cfg, mixer, ffn, h,
-                             positions=positions, frontend=frontend,
-                             use_kernel=use_kernel)
-        return h
+            h, aux = _apply_block(stacks_slice[pos], cfg, mixer, ffn, h,
+                                  positions=positions, frontend=frontend,
+                                  use_kernel=use_kernel)
+            aux_total = aux_total + aux
+        return h, aux_total
 
+    aux_sum = 0.0
     n = blocks[0]["ln1"]["scale"].shape[0]
     for i in range(n):
         stacks_slice = [tree_map(lambda x: x[i], s) for s in blocks]
         if remat == "selective":
-            h = checkpoint(period_fn, h, stacks_slice, use_reentrant=False,
-                           context_fn=_selective_context)
+            h, aux = checkpoint(period_fn, h, stacks_slice,
+                                use_reentrant=False,
+                                context_fn=_selective_context)
         elif remat:
-            h = checkpoint(period_fn, h, stacks_slice, use_reentrant=False)
+            h, aux = checkpoint(period_fn, h, stacks_slice,
+                                use_reentrant=False)
         else:
-            h = period_fn(h, stacks_slice)
-    return h
+            h, aux = period_fn(h, stacks_slice)
+        aux_sum = aux_sum + aux
+    return h, aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +301,10 @@ def _positions(x):
 
 def device_forward(dev_params: dict, cfg: ArchConfig, tokens, *,
                    frontend=None, use_kernel: bool = False, remat=True):
-    """The device-side block; returns activations (B, S, D).  ``tokens`` is
-    (B, S) ids, or (B, F, D) frame embeddings for an encoder prefix;
-    ``frontend`` (B, F, D) feeds the VLM's cross blocks."""
+    """The device-side block; returns (activations (B, S, D), the stack's
+    MoE loss).  ``tokens`` is (B, S) ids, or (B, F, D) frame embeddings for
+    an encoder prefix; ``frontend`` (B, F, D) feeds the VLM's cross
+    blocks."""
     h = dev_params["embed"][tokens] if tokens.ndim == 2 else tokens
     return _run_stack(dev_params["blocks"], cfg, h, positions=_positions(h),
                       frontend=frontend, use_kernel=use_kernel, remat=remat)
@@ -288,9 +315,10 @@ def aux_head_loss(aux_params: dict, cfg: ArchConfig, acts, labels, *,
     """Local loss f_d through the auxiliary network (Alg. 1 lines 7-8):
     CE on the local labels, or, when ``labels`` is the (B, F, D) frame
     stream (whisper's encoder), the MSE of the next frame.  The aux block
-    never takes the kernels, as in the JAX package."""
+    never takes the kernels, and its own MoE loss is dropped, as in the
+    JAX package."""
     mixer, ffn = cfg.pattern[-1]
-    h = _apply_block(aux_params["block"], cfg, mixer, ffn, acts,
+    h, _ = _apply_block(aux_params["block"], cfg, mixer, ffn, acts,
                      positions=_positions(acts), frontend=frontend)
     h = rmsnorm_apply(aux_params["norm"], h)
     if labels.ndim == 3:
@@ -307,11 +335,13 @@ def aux_head_loss(aux_params: dict, cfg: ArchConfig, acts, labels, *,
 def device_train_loss(dev_params: dict, aux_params: dict, cfg: ArchConfig,
                       tokens, labels, *, frontend=None,
                       use_kernel: bool = False, remat=True):
-    """Device-side objective F_d (Eq. 4).  Returns (loss, activations)."""
-    acts = device_forward(dev_params, cfg, tokens, frontend=frontend,
-                          use_kernel=use_kernel, remat=remat)
-    return aux_head_loss(aux_params, cfg, acts, labels,
-                         frontend=frontend), acts
+    """Device-side objective F_d (Eq. 4) plus the device stack's MoE loss.
+    Returns (loss, activations)."""
+    acts, moe_aux = device_forward(dev_params, cfg, tokens,
+                                   frontend=frontend, use_kernel=use_kernel,
+                                   remat=remat)
+    loss = aux_head_loss(aux_params, cfg, acts, labels, frontend=frontend)
+    return loss + MOE_AUX_WEIGHT * moe_aux, acts
 
 
 def _guard_dead_rows(h, *rows):
@@ -339,13 +369,14 @@ def server_forward_loss(srv_params: dict, cfg: ArchConfig, acts, labels, *,
                         frontend=None, use_kernel: bool = False, remat=True):
     """Server-side objective F_s (Eq. 5) on detached activations: no
     gradient ever flows back to the devices.  ``frontend`` feeds the VLM's
-    server-side cross blocks."""
+    server-side cross blocks.  The server stack's MoE loss is added."""
     acts = acts.detach()
-    h = _run_stack(srv_params["blocks"], cfg, acts, positions=_positions(acts),
+    h, moe_aux = _run_stack(srv_params["blocks"], cfg, acts, positions=_positions(acts),
                    frontend=frontend, use_kernel=use_kernel, remat=remat)
     h = _guard_dead_rows(h, acts, *(() if frontend is None else (frontend,)))
     h = rmsnorm_apply(srv_params["final_norm"], h)
-    return chunked_ce_loss(_head(srv_params), cfg, h, labels)
+    return chunked_ce_loss(_head(srv_params), cfg, h, labels) + \
+        MOE_AUX_WEIGHT * moe_aux
 
 
 def server_encdec_loss(srv_params: dict, cfg: ArchConfig, acts, tokens,
@@ -355,14 +386,15 @@ def server_encdec_loss(srv_params: dict, cfg: ArchConfig, acts, tokens,
     ``tokens`` with cross-attention to the final encoder states, and take
     the next-token CE against ``labels``."""
     acts = acts.detach()
-    enc = _run_stack(srv_params["blocks"], cfg, acts,
+    enc, aux_e = _run_stack(srv_params["blocks"], cfg, acts,
                      positions=_positions(acts), use_kernel=use_kernel,
                      remat=remat)
     enc = rmsnorm_apply(srv_params["final_norm"], _guard_dead_rows(enc, acts))
     head = _head(srv_params)
     h = head["embed"][tokens] if "embed" in head else head["lm_head"].T[tokens]
-    h = _run_stack(srv_params["dec_blocks"], _decoder_cfg(cfg), h,
-                   positions=_positions(h), frontend=enc,
-                   use_kernel=use_kernel, remat=remat)
+    h, aux_d = _run_stack(srv_params["dec_blocks"], _decoder_cfg(cfg), h,
+                          positions=_positions(h), frontend=enc,
+                          use_kernel=use_kernel, remat=remat)
     h = rmsnorm_apply(srv_params["dec_norm"], h)
-    return chunked_ce_loss(head, cfg, h, labels)
+    return chunked_ce_loss(head, cfg, h, labels) + \
+        MOE_AUX_WEIGHT * (aux_e + aux_d)

@@ -196,6 +196,40 @@ def test_cuda_round_kernel_matches_plain(arch, launches, kernel):
     np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
+                                  "llama4-maverick-400b-a17b"])
+def test_cuda_moe_round_is_deterministic_and_sync_free(arch):
+    """A smoke MoE round twice from one state and batch: bit-identical
+    metrics and state (the MoE dispatch and combine backwards are gathers
+    summed in a fixed order, with no atomics), the second round dispatched
+    under ``set_sync_debug_mode("error")`` (the routing's sort, slot maps
+    and capacity drops take no host sync)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: determinism and host syncs")
+    cfg = TF.FedStepConfig(arch=treg.smoke_config(arch), l_split=1,
+                           n_groups=2, seq_len=64, per_group_batch=4, H=2,
+                           omega=2, use_kernel=True)
+    state0 = TF.init_train_state(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = ttrain._make_batch(cfg, ttrain._group_streams(cfg),
+                               np.random.default_rng(0),
+                               tcp.ControlPlane(2, cfg.omega, cfg.H)
+                               .plan_round(), "cuda")
+    step = TF.make_train_step(cfg)
+    first, m1 = step(tree_map(torch.clone, state0), batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again, m2 = step(tree_map(torch.clone, state0), batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(first),
+                                                 tree_leaves(again)))
+    assert np.isfinite(float(m1["s_loss"]))
+
+
 # ---------------------------------------------------------------------------
 # the pipelined executor and its handles on the card
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """The torch port's model functions against the JAX package's, on the same
 params (converted from the JAX init) and the same numpy inputs, for smoke
-smollm-135m, mamba2-780m, qwen3-32b, gemma2-27b, llama-3.2-vision-90b and
-whisper-tiny: attention (with qk-norm, and with soft-cap and sliding
-window), the gated cross block, the MLPs (SwiGLU, GeGLU, GELU), the Mamba2
-block, the capped CE over the tied and the untied head, the next-frame aux
-MSE, and the two halves' losses with their gradients (the VLM's with its
-frontend, whisper's encoder prefix on frames and its enc-dec server loss),
-each with the kernel ops (flash attention, SSD) on and off.  Tolerance: the
+smollm-135m, mamba2-780m, qwen3-32b, gemma2-27b, llama-3.2-vision-90b,
+whisper-tiny, qwen3-moe-235b-a22b and llama4-maverick-400b-a17b: attention
+(with qk-norm, and with soft-cap and sliding window), the gated cross
+block, the MLPs (SwiGLU, GeGLU, GELU), the Mamba2 block, the capped CE over
+the tied and the untied head, the next-frame aux MSE, and the two halves'
+losses with their gradients (the VLM's with its frontend, whisper's
+encoder prefix on frames and its enc-dec server loss, the MoE archs' with
+their load-balance loss), each with the kernel ops (flash attention, SSD)
+on and off.  The MoE FFN alone is held in ``tests/test_torch_moe.py``.  Tolerance: the
 reference's own gradient tolerance, 1e-4 (``tests/test_kernel_grads.py``
 GTOL); float32 matmuls of XLA and of torch on the CPU differ in their last
 bits.
@@ -40,8 +42,10 @@ QWEN3 = "qwen3-32b"            # qk-norm, untied head
 GEMMA2 = "gemma2-27b"          # local + global, soft-caps, GeGLU
 VISION = "llama-3.2-vision-90b"  # gated cross blocks on the frontend
 WHISPER = "whisper-tiny"       # enc-dec on the frame stub
+QWEN3_MOE = "qwen3-moe-235b-a22b"     # ("attn", "moe"), top-2 of 8 (smoke)
+LLAMA4 = "llama4-maverick-400b-a17b"  # ("attn", "moe"), ("attn", "dense")
 ALL_ARCHS = (ARCH, MAMBA, "command-r-plus-104b", QWEN3, GEMMA2, VISION,
-             WHISPER)
+             WHISPER, QWEN3_MOE, LLAMA4)
 B, S = 2, 16
 # (arch, use_kernel); the smollm cases keep their ids
 ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
@@ -53,7 +57,11 @@ ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
                pytest.param(GEMMA2, False, id="gemma2-False"),
                pytest.param(GEMMA2, True, id="gemma2-True"),
                pytest.param(VISION, False, id="vision-False"),
-               pytest.param(VISION, True, id="vision-True")]
+               pytest.param(VISION, True, id="vision-True"),
+               pytest.param(QWEN3_MOE, False, id="qwen3-moe-False"),
+               pytest.param(QWEN3_MOE, True, id="qwen3-moe-True"),
+               pytest.param(LLAMA4, False, id="llama4-False"),
+               pytest.param(LLAMA4, True, id="llama4-True")]
 # whisper's server half is server_encdec_loss, tested on its own
 WHISPER_KERNEL = [pytest.param(WHISPER, False, id="whisper-False"),
                   pytest.param(WHISPER, True, id="whisper-True")]
@@ -113,6 +121,10 @@ def test_smoke_and_full_configs_match_jax():
             assert t.attn_cfg("attn").causal
             assert dataclasses.asdict(t.mlp_cfg()) == \
                 dataclasses.asdict(j.mlp_cfg())
+            if t.n_experts:
+                tm = dataclasses.asdict(t.moe_cfg())
+                jm = dataclasses.asdict(j.moe_cfg())
+                assert tm == {k: jm[k] for k in tm}, (arch, name)
             if t.ssm_state:
                 assert dataclasses.asdict(t.mamba_cfg()) == \
                     dataclasses.asdict(j.mamba_cfg())
@@ -284,11 +296,11 @@ def test_chunked_ce_loss_final_softcap_matches_jax(tie, cap):
 
 
 @pytest.mark.parametrize("arch", ["command-r-plus-104b", QWEN3, GEMMA2,
-                                  VISION, WHISPER])
+                                  VISION, WHISPER, QWEN3_MOE, LLAMA4])
 def test_convert_goes_across_by_key(arch):
     """The JAX init converted to the port holds the same leaves under the
-    same keys (q_norm, k_norm, lm_head included), and the port's own init
-    has the same key set and shapes.  JAX orders dict keys sorted and the
+    same keys (q_norm, k_norm, lm_head, the MoE router and experts
+    included), and the port's own init has the same key set and shapes.  JAX orders dict keys sorted and the
     port keeps insertion order, so both are compared by key path."""
     def by_path(tree, prefix=""):
         if isinstance(tree, dict):
@@ -310,6 +322,10 @@ def test_convert_goes_across_by_key(arch):
     cfg = st["cfg"]
     assert ("/lm_head" in want) == (not cfg.tie_embeddings)
     assert any(k.endswith("/q_norm/scale") for k in want) == cfg.qk_norm
+    moe = {k.rsplit("/", 1)[1] for k in want if "/ffn/router" in k
+           or "/ffn/we_" in k}
+    assert moe == ({"router", "we_gate", "we_up", "we_down"}
+                   if cfg.n_experts else set())
     dev, srv = ttfm.split_params(state_from_numpy(st["full"], "cpu"),
                                  treg.smoke_config(arch), 1)
     jdev, jsrv = jtfm.split_params(st["full"], cfg, 1)
@@ -536,8 +552,8 @@ def test_cross_block_matches_jax(arch, stack, pos):
     (_, want), want_g = _jvg(jloss, p, h, fe)
     tp = _leaves_grad(state_from_numpy(p, "cpu"))
     th, tfe = (torch.from_numpy(x).requires_grad_() for x in (h, fe))
-    got = ttfm._apply_block(tp, tcfg, "cross", "dense", th,
-                            positions=ttfm._positions(th), frontend=tfe)
+    got, _ = ttfm._apply_block(tp, tcfg, "cross", "dense", th,
+                               positions=ttfm._positions(th), frontend=tfe)
     torch.sum(got * torch.from_numpy(r)).backward()
     _close(got.detach().numpy(), want)
     _close((_grads(tp), th.grad.numpy(), tfe.grad.numpy()), want_g)
