@@ -16,10 +16,13 @@ exits non-zero:
    9:3 heads, hd 64, causal, f32) and at ragged S, S != Skv, window,
    soft-cap, MHA, MQA, the other head dims, and bf16 at each head dim;
    SSD at mamba2-780m's shape (B=2 and B=8, T=1024, 48 heads, P 64, G 1,
-   N 128, Q 256, f32), ragged T, T < Q, grouped B/C, the smoke shape and a
-   large decay; at B=8 two ``ssd_fwd`` calls and two ``ssd_bwd`` calls
-   on the same inputs must each be bit-identical (their sums run in a
-   fixed order).  Then the head-dim-128 rows of the full-width qwen3-32b
+   N 128, Q 256, f32), ragged T, T < Q, grouped B/C, the smoke shape, a
+   large decay and jamba-1.5-large-398b's shape (B=2, 256 heads; timed);
+   at jamba's own decays (A down to -256) the kernels and the float32
+   plain version against the plain version in float64
+   (``SSD_CONDITIONING``, with a planted dA fault that must fail); at B=8 two ``ssd_fwd`` calls and two
+   ``ssd_bwd`` calls on the same inputs must each be bit-identical (their
+   sums run in a fixed order).  Then the head-dim-128 rows of the full-width qwen3-32b
    and gemma2-27b paths (``WIDE_CASES``), at every shape those paths give
    the kernels (server and device halves): 64:8 heads, 32:16 heads with the
    logit cap 50, gemma2's local blocks (window 4096) at S=1024, and at
@@ -49,11 +52,10 @@ exits non-zero:
    path (``sdpa_chunked``, ``ssd_chunked``) from the same state, batches
    and plans: the kernels launch as reckoned from H, G and the split and
    the plain path never, losses within 1e-3 relative, params within
-   ``PARAMS_TOL`` and finite; one profiled round; then the driver
-   (``repro_torch.launch.train.run_pod``, five rounds of smollm, three of
-   mamba2) with the kernels at ``--window 1`` and ``--window 2`` in turns
-   (1, 2, 2, 1), each run with every
-   kernel's launches counted over the run (rounds x the per-round count)
+   ``PARAMS_TOL`` and finite; the second kernel round profiled; then the
+   driver (``repro_torch.launch.train.run_pod``, five rounds of smollm,
+   three of mamba2) with the kernels at ``--window 1`` and ``--window 2``
+   in turns (1, 2), each run with every kernel's launches counted over the run (rounds x the per-round count)
    and its peak memory, steady tok/s, host seconds inside ``step()`` per
    round and the executor's summary; the two windows' histories must be
    bit-identical.
@@ -68,7 +70,10 @@ exits non-zero:
    published width but the expert count (2 and 4 layers; 128 experts cut
    to one chip's share of an expert-parallel layer, 32 and 8; each half's
    capacity printed; the plain run replays the kernel run's expert
-   choices, ``replay_route``): the same
+   choices, ``replay_route``), and jamba-1.5-large-398b, the first path
+   with both kernel families, at every published width (4 layers, the
+   period cut to attention + Mamba/MoE, 16 experts cut to 2, G=1; the
+   launches of each family reckoned from its own blocks): the same
    kernels-vs-plain check and profiled round, and three driver rounds
    through the ``RoundExecutor`` at window 2 (steady tok/s, device ms per
    round, peak memory).  The cuts are printed on the path's first line.
@@ -78,6 +83,19 @@ exits non-zero:
    six rounds at windows 1 and 2: bit-identical histories and final
    params, and a dropped group must have been retired (gathered from the
    live state at a boundary) in both runs.
+6. serving (``SERVE``), run right after each served path's driver: smollm,
+   mamba2 and whisper whole, jamba at phase 4c's cuts, each from its
+   trained final state merged with ``merge_params`` (the training state
+   freed first).  The kernel prefill launches ``fa_fwd`` once per
+   self-attention block and ``ssd_fwd`` once per Mamba block and nothing
+   else, decode none; kernel against plain prefill (last logits and every
+   cache leaf within ``SERVE_TOL`` of its scale); decode after the prefill
+   of S tokens against the prefill of S + 1 on both paths (within
+   ``SERVE_DECODE_TOL``); then greedy
+   generation on both, with prefill ms, decode ms per step, tok/s, peak
+   memory and the greedy tokens that differ printed.
+
+Each part's seconds are printed on its ``[time]`` line.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -87,6 +105,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -134,6 +153,11 @@ MAIN_PATHS = {  # arch: its own flags
     "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "6"],
 }
 DRIVER_ROUNDS = {"smollm-135m": 5, "mamba2-780m": 3}   # per driver run
+# The windows of the driver runs: one turn of each.  The windows'
+# histories are compared, and phase 5 runs both windows again under churn;
+# a timing of one tree against another in paired turns is
+# ``tools/ab_driver.py``'s.
+DRIVER_TURNS = (1, 2)
 # Phase 4c: full width, cut in depth (no depth flag: the script builds the
 # FedStepConfig itself); arch: (the cuts, as ``ArchConfig.scaled``
 # keywords; l_split in periods; G; batch per group; seq).  H=4, so the
@@ -147,6 +171,20 @@ DRIVER_ROUNDS = {"smollm-135m": 5, "mamba2-780m": 3}   # per driver run
 # GB in f32 and one of llama4-maverick 64.4 GB, so each keeps one chip's
 # share of an expert-parallel layer (128 experts over 4 chips: 32; over
 # 16: 8), and the router picks among the experts held here.
+# jamba-1.5-large-398b keeps every published width (d_model 8192, 64:8
+# heads at hd 128, d_ff 24576, vocab 65536; SSD with 256 heads, N 128,
+# P 64, G 1, chunk 256; top-2) with its eight-block period cut to attention
+# at 0 and MoE at 1, as the rule reads, 4 layers (one period a side) and
+# 16 experts cut to 2, one chip's share of an 8-way expert-parallel layer.
+# Memory (f32): attention + dense FFN is 755.0M params, Mamba + MoE 406.9M
+# + 2 x 604.0M = 1,614.9M; the device half is embed 536.9M + the period +
+# the aux block (1,614.9M + 37.7M) = 4,559M, the server half the period +
+# lm_head = 2,906.8M: 7.47B params, 29.9 GB, at G=1; at G=2 12.0B, 48.1
+# GB, which does not fit (llama-vision's 40.55 GB of params peaked at 73.23
+# GiB of 79.18).  With 2 experts at top-2 every token takes both, so this
+# path exercises the dispatch and combine at full width but not the choice
+# among experts (the CPU tests and phase 3's MoE row hold that), and the
+# ("mamba", "dense") block is held on the CPU only.
 WIDE_ARGS = ["--mode", "pod", "--full", "--H", "4", "--omega", "1",
              "--use-kernel", "--device", "cuda"]
 WIDE_PATHS = {
@@ -159,8 +197,34 @@ WIDE_PATHS = {
     "qwen3-moe-235b-a22b": (dict(n_layers=2, n_experts=32), 1, 2, 8, 1024),
     "llama4-maverick-400b-a17b": (dict(n_layers=4, n_experts=8), 1, 2, 4,
                                   1024),
+    "jamba-1.5-large-398b": (dict(n_layers=4, n_experts=2,
+                                  pattern=(("attn", "dense"),
+                                           ("mamba", "moe"))), 1, 1, 8, 1024),
+}
+WIDE_NOTES = {
+    "jamba-1.5-large-398b": (
+        "memory (f32): device half embed 536.9M + attention/dense 755.0M + "
+        "Mamba/MoE 1,614.9M + aux 1,652.6M = 4,559M params, server half "
+        "2,369.9M + lm_head 536.9M = 2,906.8M: 7.47B, 29.9 GB at G=1 (48.1 "
+        "GB at G=2 does not fit); 2 experts at top-2: every token takes "
+        "both (dispatch and combine at full width, not the choice among "
+        "experts); the (mamba, dense) block is held on the CPU only"),
 }
 WIDE_DRIVER_ROUNDS = 3
+# Phase 6, serving: arch -> (batch, prompt length, new tokens).  Each is
+# served from its path's trained final state, merged (``merge_params``):
+# smollm and mamba2 whole, whisper whole over its 1500 frames (416 + 32 =
+# 448 tokens, its text context), jamba at phase 4c's cuts.
+SERVE = {"smollm-135m": (8, 1024, 32), "mamba2-780m": (8, 1024, 32),
+         "whisper-tiny": (8, 416, 32), "jamba-1.5-large-398b": (2, 1024, 16)}
+# Kernel prefill against plain prefill: the last logits and every cache
+# leaf within 1e-3 of the leaf's largest |value| (relative), as the round's
+# losses are held.  Decode after the prefill of S tokens against the
+# prefill of S + 1: the last logits within 1e-4 of their largest |value|,
+# ten times the plain path's own float32 spread between the two forms (at
+# most 9.331e-06 over the four served paths on an H100).
+SERVE_TOL = 1e-3
+SERVE_DECODE_TOL = 1e-4
 # Params after two rounds, kernels vs plain: max |difference| (phase 4).
 # The paths read 2.384e-07 on an H100 (one float32 ulp at |p| in [2, 4)),
 # whisper-tiny 8.792e-07; a wrong kernel moves params by lr_d (0.05) times
@@ -511,7 +575,22 @@ SSD_CASES = [
     ("grouped", (2, 1024, 8, 64, 2, 128, 256), -8.0),
     ("smoke", (2, 16, 8, 16, 1, 16, 8), -8.0),
     ("large-decay", (1, 256, 48, 64, 1, 128, 256), -48.0),
+    # jamba-1.5-large-398b's Mamba blocks (both halves), at the other rows'
+    # decays; its own range (A to -256) is SSD_CONDITIONING's
+    ("jamba", (2, 1024, 256, 64, 1, 128, 256), -48.0),
 ]
+SSD_TIMED = ("jamba",)
+# jamba's own decays, A from -1 to -256 (A_log = log(1..H)), at dt ~0.1: the
+# chunk's log-decay reaches ~6.5e3 and dA's terms cancel inside the chunk's
+# reverse sums far past the scale ``ref.ssd_scales`` gives it, so float32
+# cannot hold dA to SSD_TOL there, the plain version no more than the
+# kernel.  Both are held against the plain version in float64: the kernel
+# within the SSD_TOL limit or within 2x of the float32 plain version's own
+# error, output by output.  A planted fault shows what 2x lets through: the
+# kernel's dA with one chunk's term of its reverse chunk sum left out must
+# fail it (it is printed, chunk by chunk, beside the limit), and dA with a
+# single step's term left out is printed as what the check cannot see.
+SSD_CONDITIONING = ((2, 1024, 256, 64, 1, 128, 256), -256.0)
 
 
 def _ssd_inputs(torch, shape, a_min, seed, large_decay):
@@ -594,7 +673,7 @@ def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
                 if not all(same):
                     raise AssertionError(f"{name}: two calls on the same "
                                          "inputs differ")
-        if not case.startswith("main"):
+        if not (case.startswith("main") or case in SSD_TIMED):
             continue
         runs = {"ssd_fwd": (lambda: ssd_k.ssd_fwd(*args, chunk=Q),
                             lambda: ref.ssd_fwd(*args, chunk=Q)),
@@ -616,20 +695,75 @@ def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
     return record
 
 
+def phase_ssd_conditioning(torch, ssd_k, ref) -> None:
+    """``SSD_CONDITIONING``: the kernels and the float32 plain version
+    against the plain version in float64, per output the largest error
+    over the SSD_TOL limit (of the float64 outputs' scales)."""
+    shape, a_min = SSD_CONDITIONING
+    args, dy, Q = _ssd_inputs(torch, shape, a_min, len(SSD_CASES), False)
+    a64 = [t.double() for t in args]
+    _, st32 = ref.ssd_fwd(*args, chunk=Q)
+    got = (*ssd_k.ssd_fwd(*args, chunk=Q),
+           *ssd_k.ssd_bwd(*args, st32, dy, chunk=Q))
+    plain = (*ref.ssd_fwd(*args, chunk=Q)[:1], st32,
+             *ref.ssd_bwd(*args, st32, dy, chunk=Q))
+    y64, st64 = ref.ssd_fwd(*a64, chunk=Q)
+    names = ("y", "states", "dx", "ddt", "dA", "dB", "dC")
+    want = dict(zip(names, (y64, st64, *ref.ssd_bwd(
+        *a64, st64, dy.double(), chunk=Q))))
+    scale = ref.ssd_scales(*a64[:3], want)
+    torch.cuda.synchronize()
+    print(f"[kernels] ssd conditioning: B,T,H,P,G,N,chunk={shape} A down to "
+          f"{a_min} dt ~0.1, kernel and float32 plain against float64: max "
+          f"error / (1e-4 scale + 1e-3 |ref|)", flush=True)
+    lim = {n: SSD_TOL[0] * scale[n] + SSD_TOL[1] * want[n].abs()
+           for n in names}
+    ratio = lambda n, t: float(((t.double() - want[n]).abs() / lim[n]).max())
+    for n, k, p in zip(names, got, plain):
+        rk, rp = ratio(n, k), ratio(n, p)
+        ok = rk <= max(1.0, 2.0 * rp) and bool(torch.isfinite(k).all())
+        print(f"[kernels]   {n:6s} kernel {rk:.3f}  plain float32 {rp:.3f}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"ssd conditioning {n}: the kernel is "
+                                 "further from float64 than float32 allows")
+        if n == "dA":
+            limit = max(1.0, 2.0 * rp)
+    # the planted fault: each term dA_h = sum over (b, t) of dt dla, with
+    # dt dla = (dt ddt - <dx, x>) / A, in float64
+    dla_dt = (a64[1] * want["ddt"] - (want["dx"] * a64[0]).sum(-1)) / a64[2]
+    chunks = dla_dt.unflatten(1, (-1, Q)).sum(dim=(0, 2))       # (nc, H)
+    dA = got[4].double()
+    faults = [ratio("dA", dA - term) for term in chunks]
+    step = ratio("dA", dA - dla_dt[0, -1])
+    print(f"[kernels]   dA planted fault, one chunk's term of the reverse "
+          f"chunk sum left out: {' '.join(f'{r:.3f}' for r in faults)} "
+          f"(chunk by chunk; must exceed the limit {limit:.3f}) | one step's "
+          f"term left out: {step:.3f} (not seen at this conditioning)",
+          flush=True)
+    if not min(faults) > limit:
+        raise AssertionError("ssd conditioning: a dA with a chunk's term "
+                             "left out passes the check")
+    del args, dy, a64, st32, got, plain, y64, st64, want, scale, lim
+    del dla_dt, chunks, dA
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # 4. the main paths
 # ---------------------------------------------------------------------------
 
-def profile_round(torch, step, state, batch, top=12):
-    """One kernel-path round under torch.profiler: device time by kernel
-    and the device's busy share of the round's wall time (the profiler's
-    own overhead is inside that wall time)."""
+def profile_round(torch, round_fn, top=12):
+    """One kernel-path round, ``round_fn()``, under torch.profiler: device
+    time by kernel and the device's busy share of the round's wall time
+    (the profiler's own overhead is inside that wall time).  Returns the
+    round's result."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
+        out = round_fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.self_device_time_total]
@@ -643,6 +777,7 @@ def profile_round(torch, step, state, batch, top=12):
           f"{1 - busy / wall_ms:.1%}")
     for name, ms in sorted(kernels, key=lambda x: -x[1])[:top]:
         print(f"[profile]   {ms:9.2f} ms {ms / busy:6.1%}  {name[:100]}")
+    return out
 
 
 def _describe(cfg) -> str:
@@ -680,32 +815,69 @@ def wide_setup(arch: str, flags):
     return args, dataclasses.replace(cfg, arch=cfg.arch.scaled(**cuts))
 
 
-def kernel_blocks(cfg) -> tuple[int, int]:
-    """(device, server) blocks a micro-iteration runs that take the
-    kernels: the self-attention and Mamba blocks.  Cross blocks never do,
-    nor does the aux block; an enc-dec server adds its decoder's
-    self-attention blocks."""
+def _takes(arch) -> dict:
+    """Blocks of a period that take each kernel family: "fa_" the
+    self-attention blocks, "ssd_" the Mamba blocks."""
+    return {"fa_": sum(m in ("attn", "local") for m, _ in arch.pattern),
+            "ssd_": sum(m == "mamba" for m, _ in arch.pattern)}
+
+
+def _family(name: str) -> str:
+    return "fa_" if name.startswith("fa_") else "ssd_"
+
+
+def _model_blocks(arch) -> dict:
+    """Per kernel family (``_takes``), the blocks of the whole model that
+    take its kernels: every period's, and an enc-dec's decoder's
+    self-attention blocks.  Cross blocks never do."""
     from repro_torch.models.transformer import _decoder_cfg
-    arch = cfg.arch
-    takes = lambda a: sum(m in ("attn", "local", "mamba")
-                          for m, _ in a.pattern)
-    dev = cfg.l_split * takes(arch)
-    srv = (arch.n_periods - cfg.l_split) * takes(arch)
+    n = {fam: arch.n_periods * k for fam, k in _takes(arch).items()}
     if arch.n_decoder_layers:
         dec = _decoder_cfg(arch)
-        srv += dec.n_periods * takes(dec)
-    return dev, srv
+        n = {fam: k + dec.n_periods * _takes(dec)[fam]
+             for fam, k in n.items()}
+    return n
+
+
+def kernel_blocks(cfg) -> dict:
+    """Per kernel family, the (device, server) blocks a micro-iteration
+    runs that take its kernels: the device its ``l_split`` periods, the
+    server the rest of the model (``_model_blocks``).  The aux block never
+    takes them."""
+    return {fam: (cfg.l_split * k, total - cfg.l_split * k)
+            for (fam, k), total in zip(_takes(cfg.arch).items(),
+                                       _model_blocks(cfg.arch).values())}
 
 
 def launches_per_round(cfg, counters) -> tuple[int, dict]:
-    """(n, want): each of the path's kernels launches n times a round, once
-    per kernel block per micro-iteration (H x (G x device blocks + server
-    blocks), ``kernel_blocks``), and every other kernel never."""
-    dev, srv = kernel_blocks(cfg)
-    n = cfg.H * (cfg.n_groups * dev + srv)
-    prefix = "ssd_" if cfg.arch.pattern[0][0] == "mamba" else "fa_"
-    return n, {name: n if name.startswith(prefix) else 0
-               for c in counters for name in c.launches}
+    """(n, want): each kernel launches once per block of its family per
+    micro-iteration, H x (G x device blocks + server blocks) a round
+    (``kernel_blocks``); n is the most any kernel launches."""
+    blocks = kernel_blocks(cfg)
+    want = {}
+    for c in counters:
+        for name in c.launches:
+            dev, srv = blocks[_family(name)]
+            want[name] = cfg.H * (cfg.n_groups * dev + srv)
+    return max(want.values()), want
+
+
+def serve_launches(arch, counters) -> dict:
+    """One prefill with the kernels: ``fa_fwd`` once per self-attention
+    block (an enc-dec's encoder and decoder), ``ssd_fwd`` once per Mamba
+    block, and no other kernel (decode launches none)."""
+    n = _model_blocks(arch)
+    return {name: n[_family(name)] if name.endswith("_fwd") else 0
+            for c in counters for name in c.launches}
+
+
+def _reckoning(cfg) -> str:
+    """Each family's launches a round, H x (G x device + server blocks)."""
+    blocks = kernel_blocks(cfg)
+    return "; ".join(
+        f"{fam}* {cfg.H} x ({cfg.n_groups} x {dev} + {srv}) = "
+        f"{cfg.H * (cfg.n_groups * dev + srv)}"
+        for fam, (dev, srv) in blocks.items() if dev or srv)
 
 
 def replay_route(torch, params, cfg, xt, chosen):
@@ -736,9 +908,10 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
     """Two rounds with the kernels and two with the plain path from the same
     state, batches and plans: the kernels launch ``want`` times a round and
     the plain path never, the losses agree within 1e-3 relative and the
-    params within PARAMS_TOL and are finite.  Then one profiled round.  The
-    state is drawn from the seed for each run (two copies of a full-width
-    state do not fit beside a round's gradients).
+    params within PARAMS_TOL and are finite.  The second kernel round is
+    profiled (``profile_round``).  The state is drawn from the seed for each
+    run (two copies of a full-width state do not fit beside a round's
+    gradients).
 
     On a MoE path the plain run replays the kernel run's expert choices
     (``replay_route``): a token whose two candidate experts' probabilities
@@ -800,13 +973,15 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
         try:
             for r, batch in enumerate(batches):
                 t0 = time.perf_counter()
-                state, m = step(state, batch)
+                run = lambda: step(state, batch)
+                profiled = use_kernel and r == 1
+                state, m = profile_round(torch, run) if profiled else run()
                 m = {k: float(v) for k, v in m.items()}
                 losses[use_kernel].append(m)
                 print(f"{tag} {'kernel' if use_kernel else 'plain '} round "
                       f"{r + 1}: d_loss {m['d_loss']!r} s_loss "
-                      f"{m['s_loss']!r} ({time.perf_counter() - t0:.2f} s)",
-                      flush=True)
+                      f"{m['s_loss']!r} ({time.perf_counter() - t0:.2f} s"
+                      f"{', profiled' if profiled else ''})", flush=True)
         finally:
             mlp._top_k_route = route
         launches = {k: v for c in counters for k, v in c.launches.items()}
@@ -837,8 +1012,8 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
               f" choice differed for {n} tokens (smallest gap between "
               f"adjacent top-{cfg.arch.top_k + 1} probabilities among them "
               f"{gap:.3e})", flush=True)
-    print(f"{tag} launches per round {max(want.values())} of each of "
-          f"{[k for k, n in want.items() if n]}, none on the plain path | "
+    print(f"{tag} launches per round {({k: n for k, n in want.items() if n})}"
+          f", none on the plain path | "
           f"params after 2 rounds, kernel vs plain: max abs diff {diff:.3e} "
           f"(limit {PARAMS_TOL:g}), all finite True", flush=True)
     if not diff <= PARAMS_TOL:
@@ -853,28 +1028,27 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
             if not (rel <= 1e-3 and math.isfinite(x[key])):
                 raise AssertionError(f"{tag} round {r + 1} {key}: kernel "
                                      "and plain paths disagree")
-    profile_round(torch, F.make_train_step(cfg), fresh_state(), batches[1])
     del batches
     torch.cuda.empty_cache()
 
 
 def phase_main(torch, arch: str, counters) -> dict:
-    """One main path: kernels vs plain, a profiled round, and the driver.
-    ``counters`` are the kernel modules whose ``launches`` the driver's
-    rounds read."""
+    """One main path: kernels vs plain (a round of it profiled), the driver, and
+    serving from the last driver run's final state.  ``counters`` are the
+    kernel modules whose ``launches`` the driver's rounds read."""
     t_phase = time.perf_counter()
     args, cfg = main_setup(arch, ["--rounds", "2"])
     print(f"[main] {_describe(cfg)}", flush=True)
     per_round, want = launches_per_round(cfg, counters)
     kernel_vs_plain(torch, "[main]", args, cfg, counters, want)
 
-    # 4b: the driver at windows 1 and 2, in turns (1, 2, 2, 1)
-    rounds = DRIVER_ROUNDS[arch]
+    # 4b: the driver at windows 1 and 2, in turns
+    rounds, turns = DRIVER_ROUNDS[arch], DRIVER_TURNS
     runs = []
-    for window in (1, 2, 2, 1):
+    for i, window in enumerate(turns):
         run = drive(torch, *main_setup(arch, ["--rounds", str(rounds),
                                               "--window", str(window)]),
-                    counters)
+                    counters, keep_state=i == len(turns) - 1)
         want_total = {k: n * rounds for k, n in want.items()}
         for r, m in enumerate(run["history"]):
             if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
@@ -892,7 +1066,7 @@ def phase_main(torch, arch: str, counters) -> dict:
     by = {w: [run for ww, run in runs if ww == w] for w in (1, 2)}
     steady = {w: [run["steady_tok_s"] for run in by[w]] for w in (1, 2)}
     peak = {w: max(run["peak_bytes"] for run in by[w]) for w in (1, 2)}
-    print(f"[main] windows 1 and 2 (run in turns 1, 2, 2, 1; {rounds} "
+    print(f"[main] windows 1 and 2 (run in turns {turns}; {rounds} "
           f"rounds each): histories bit-identical | steady tok/s window 1 "
           f"{[round(t, 1) for t in steady[1]]} mean "
           f"{statistics.mean(steady[1]):,.1f}, window 2 "
@@ -902,11 +1076,13 @@ def phase_main(torch, arch: str, counters) -> dict:
           f"round {per_round} of each of "
           f"{[k for k, n in want.items() if n]} | phase "
           f"{time.perf_counter() - t_phase:.0f} s", flush=True)
+    served = serve_trained(torch, cfg, runs[-1][1], counters)
     return {"launches": by[2][0]["launches"], "steady_tok_s": steady,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "serve": served}
 
 
-def drive(torch, args, cfg, counters, keep_final: bool = False) -> dict:
+def drive(torch, args, cfg, counters, keep_final: bool = False,
+          keep_state: bool = False) -> dict:
     """One run of the driver (``train.run_pod(args, cfg)``): every kernel's
     launch count is set to 0 just before it and read just after, and the
     peak memory is taken over it alone.  Prints the losses, the steady
@@ -915,7 +1091,8 @@ def drive(torch, args, cfg, counters, keep_final: bool = False) -> dict:
     window - 1 dispatches), the per-round tok/s, the host seconds per round
     inside step() apart from planning and building, and the executor's
     summary.  ``keep_final`` returns the final dev, aux and srv params,
-    copied to the host."""
+    copied to the host; ``keep_state`` the final state as it lies on the
+    card."""
     from repro_torch.core.executor import completion_gap_s
     from repro_torch.launch import train
     from repro_torch.models.common import tree_map
@@ -957,7 +1134,7 @@ def drive(torch, args, cfg, counters, keep_final: bool = False) -> dict:
              for k in ("dev", "aux", "srv")} if keep_final else None
     return {"history": out["history"], "steady_tok_s": out["steady_tok_s"],
             "peak_bytes": peak, "launches": launches, "executor": xs,
-            "final": final}
+            "final": final, "state": out["state"] if keep_state else None}
 
 
 def phase_churn(torch, counters) -> None:
@@ -989,14 +1166,14 @@ def phase_churn(torch, counters) -> None:
 
 
 def phase_wide(torch, arch: str, counters) -> dict:
-    """A full-width path with ``WIDE_PATHS``' cuts: kernels vs plain, one
-    profiled round, and three driver rounds at window 2."""
+    """A full-width path with ``WIDE_PATHS``' cuts: kernels vs plain (a
+    round of it profiled), and ``WIDE_DRIVER_ROUNDS`` driver rounds at
+    window 2."""
     from repro_torch.configs import registry
 
     t_phase = time.perf_counter()
     args, cfg = wide_setup(arch, ["--rounds", "2"])
     a, full = cfg.arch, registry.get(arch)
-    dev, srv = kernel_blocks(cfg)
     per_round, want = launches_per_round(cfg, counters)
     cuts = [f"depth {full.n_layers} -> {a.n_layers} layers"] \
         if a.n_layers != full.n_layers else []
@@ -1021,8 +1198,14 @@ def phase_wide(torch, arch: str, counters) -> dict:
     if cfg.per_group_batch != 8:
         cuts.append(f"batch {cfg.per_group_batch} per group (the main "
                     "paths: 8)")
+    ssd = ""
+    if a.ssm_state:
+        m = a.mamba_cfg()
+        ssd = (f", SSD heads {m.n_heads}, N {m.d_state}, P {m.head_dim}, G "
+               f"{m.n_groups}, chunk {m.chunk}")
+    note = f" | {WIDE_NOTES[arch]}" if arch in WIDE_NOTES else ""
     print(f"[wide] {arch} at every published width: d_model {a.d_model}, "
-          f"heads {a.n_heads}:{a.n_kv_heads}, hd {a.hd}, d_ff {a.d_ff} "
+          f"heads {a.n_heads}:{a.n_kv_heads}, hd {a.hd}{ssd}, d_ff {a.d_ff} "
           f"({a.activation}), vocab {a.vocab}, pattern {list(a.pattern)}, "
           f"qk_norm {a.qk_norm}, attn cap {a.attn_softcap}, final cap "
           f"{a.final_softcap}, window {a.window}, tied head "
@@ -1033,12 +1216,13 @@ def phase_wide(torch, arch: str, counters) -> dict:
           f"{cfg.n_groups}, batch {cfg.per_group_batch} (micro-batch "
           f"{cfg.micro_batch}, server batch {cfg.n_groups * cfg.micro_batch})"
           f", H={cfg.H}, seq {cfg.seq_len}, omega {cfg.omega}, remat "
-          f"{cfg.remat!r}, f32, TF32 off | launches per round {per_round} = "
-          f"H {cfg.H} x (G {cfg.n_groups} x {dev} device blocks + {srv} "
-          "server blocks that take the kernels)", flush=True)
+          f"{cfg.remat!r}, f32, TF32 off | launches per round, H x (G x "
+          f"device blocks + server blocks that take the kernels): "
+          f"{_reckoning(cfg)}{note}", flush=True)
     kernel_vs_plain(torch, f"[wide] {arch}", args, cfg, counters, want)
     run = drive(torch, *wide_setup(arch, [
-        "--rounds", str(WIDE_DRIVER_ROUNDS), "--window", "2"]), counters)
+        "--rounds", str(WIDE_DRIVER_ROUNDS), "--window", "2"]), counters,
+        keep_state=arch in SERVE)
     if not all(math.isfinite(m[k]) for m in run["history"]
                for k in ("d_loss", "s_loss")):
         raise AssertionError(f"{arch} driver: non-finite loss")
@@ -1051,10 +1235,169 @@ def phase_wide(torch, arch: str, counters) -> dict:
           f"{run['executor']['device_s_per_round'] * 1e3:.1f} | peak memory "
           f"{run['peak_bytes'] / 2**30:.2f} GiB | phase "
           f"{time.perf_counter() - t_phase:.0f} s", flush=True)
-    return {"launches": run["launches"], "per_round": per_round}
+    served = serve_trained(torch, cfg, run, counters) if arch in SERVE \
+        else None
+    return {"launches": run["launches"], "per_round": per_round,
+            "serve": served}
+
+
+# ---------------------------------------------------------------------------
+# 6. serving
+# ---------------------------------------------------------------------------
+
+def serve_trained(torch, cfg, run, counters) -> dict:
+    """Serve ``cfg``'s arch from a driver run's final state: group 0's
+    device half merged with the server half (``merge_params``), the rest of
+    the training state freed first."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import merge_params
+    state = run.pop("state")
+    dev0 = tree_map(lambda x: x[0], state["dev"])
+    params = merge_params(dev0, state["srv"], cfg.arch)
+    del state, dev0
+    torch.cuda.empty_cache()
+    try:
+        return phase_serve(torch, cfg.arch, params, counters)
+    finally:
+        del params
+        torch.cuda.empty_cache()
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want|, over one tensor."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _timed(torch, fn):
+    """(fn(), its time in ms on the card's clock, from CUDA events)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_serve(torch, arch, params, counters) -> dict:
+    """Serving on the card (``SERVE``): the kernel prefill launches
+    ``fa_fwd`` once per self-attention block and ``ssd_fwd`` once per Mamba
+    block and no other kernel, and decode none; the kernel prefill against
+    the plain one (last logits and every cache leaf within ``SERVE_TOL`` of
+    its scale); decode after the prefill of S tokens against the prefill
+    of S + 1 on both paths, within ``SERVE_DECODE_TOL`` of the logits'
+    scale;
+    then greedy generation on both paths through the serving entry point,
+    ``launch.serve.generate``, timed whole, with the decode's time per step
+    taken as (generate - a prefill alone) / (new - 1).  Returns the
+    launches of one kernel prefill."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    B, S, new = SERVE[arch.name]
+    tag = f"[serve] {arch.name}"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, arch.vocab, (B, S + 1), generator=gen,
+                            device="cuda")
+    fe = torch.randn(B, arch.frontend_len, arch.d_model, generator=gen,
+                     device="cuda") if arch.frontend_len else None
+    want = serve_launches(arch, counters)
+    none = {k: 0 for k in want}
+    n = sum(x.numel() for x in tree_leaves(params))
+    print(f"{tag}: merged params {n:,} ({n * 4 / 1e9:.2f} GB f32), batch "
+          f"{B}, prompt {S}, {new} new tokens"
+          f"{f', {arch.frontend_len} frames' if fe is not None else ''}; "
+          f"kernel prefill launches {({k: v for k, v in want.items() if v})}",
+          flush=True)
+
+    def launched(fn):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for c in counters for k, v in c.launches.items()}
+
+    def prefill(tokens, use_kernel):
+        return launched(lambda: tfm.prefill(
+            params, arch, tokens, max_len=S + new, frontend=fe,
+            use_kernel=use_kernel))
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        (lk, ck), n_k = prefill(prompts[:, :S], True)
+        (lp, cp), n_p = prefill(prompts[:, :S], False)
+        if n_k != want or n_p != none:
+            raise AssertionError(f"{tag} prefill launches: kernel {n_k} "
+                                 f"(want {want}), plain {n_p} (want none)")
+        errs = [_rel_err(lk, lp)] + [
+            _rel_err(a, b) for a, b in zip(tree_leaves(ck), tree_leaves(cp))]
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in [lk, *tree_leaves(ck)])
+        print(f"{tag}: kernel vs plain prefill: last logits {errs[0]:.3e}, "
+              f"the worst of {len(errs) - 1} cache leaves "
+              f"{max(errs[1:]):.3e} (relative to each one's max |value|; "
+              f"limit {SERVE_TOL:g}) | finite {finite}", flush=True)
+        if not (max(errs) <= SERVE_TOL and finite):
+            raise AssertionError(f"{tag}: kernel and plain prefill disagree")
+        spread = {}
+        for use_kernel, caches in ((True, ck), (False, cp)):
+            (ld, _), n_d = launched(lambda: tfm.serve_decode_step(
+                params, arch, caches, prompts[:, S:], S))
+            (lw, _), _ = prefill(prompts, use_kernel)
+            spread[use_kernel] = _rel_err(ld, lw)
+            if any(n_d.values()):
+                raise AssertionError(f"{tag}: decode launched {n_d}")
+        del lk, ck, lp, cp
+        print(f"{tag}: decode after the prefill of {S} tokens vs the prefill"
+              f" of {S + 1}: kernel {spread[True]:.3e}, plain "
+              f"{spread[False]:.3e} (relative to the logits' max |value|; "
+              f"limit {SERVE_DECODE_TOL:g}); decode launched no kernel",
+              flush=True)
+        if not max(spread.values()) <= SERVE_DECODE_TOL:
+            raise AssertionError(f"{tag}: decode disagrees with prefill")
+        runs = {True: [], False: []}
+        for uk in (True, False, False, True):      # in turns
+            pre_ms = _timed(torch, lambda: tfm.prefill(
+                params, arch, prompts[:, :S], max_len=S + new, frontend=fe,
+                use_kernel=uk))[1]
+            (out, gen_ms), n_g = launched(lambda: _timed(torch, lambda: (
+                generate(params, arch, prompts[:, :S], new_tokens=new,
+                         max_len=S + new, frontend=fe, use_kernel=uk))))
+            if n_g != (want if uk else none):
+                raise AssertionError(f"{tag}: generate launched {n_g}, want "
+                                     f"{want if uk else none}")
+            if out.shape != (B, S + new) or not torch.equal(out[:, :S],
+                                                            prompts[:, :S]):
+                raise AssertionError(f"{tag}: generate gave {out.shape}")
+            runs[uk].append((out[:, S:], pre_ms,
+                             (gen_ms - pre_ms) / (new - 1)))
+    tok = {uk: r[0][0] for uk, r in runs.items()}
+    same = all(torch.equal(r[0][0], r[1][0]) for r in runs.values())
+    ms = {uk: [statistics.mean(x[i] for x in r) for i in (1, 2)]
+          for uk, r in runs.items()}
+    (pre_ms, dec_ms), (pre_p, dec_p) = ms[True], ms[False]
+    differ = int((tok[True] != tok[False]).sum())
+    print(f"{tag}: kernel prefill {pre_ms:.1f} ms (plain {pre_p:.1f}) | "
+          f"decode {dec_ms:.2f} ms per step (plain {dec_p:.2f}), "
+          f"{B * 1e3 / dec_ms:,.1f} tok/s (generate timed whole less a "
+          f"prefill alone, over {new - 1} steps; means of two runs each, in "
+          f"turns kernel, plain, plain, kernel; each path's two runs give the"
+          f" same tokens: {same}) | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | greedy "
+          f"tokens that differ between the kernel and plain runs {differ} of "
+          f"{tok[True].numel()} | phase {time.perf_counter() - t0:.0f} s",
+          flush=True)
+    return n_k
 
 
 def main() -> int:
+    # llama-vision's plain rounds peak within ~6 GiB of the card's 79.18:
+    # segments that grow in place keep the allocator's freed blocks usable
+    # (without them a run has gone out of memory with 4.97 GiB reserved
+    # but unallocated)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     from repro_torch.kernels import build
@@ -1067,12 +1410,27 @@ def main() -> int:
     phase_build(build)
     record = phase_kernels(torch, fa, ref)
     record.update(phase_ssd_kernels(torch, ssd_k, ref))
+    phase_ssd_conditioning(torch, ssd_k, ref)
     phase_moe(torch)
     print(f"[time] device, build and kernels: {time.perf_counter() - t0:.0f}"
           " s", flush=True)
-    paths = {arch: phase_main(torch, arch, (fa, ssd_k)) for arch in MAIN_PATHS}
-    wide = {arch: phase_wide(torch, arch, (fa, ssd_k)) for arch in WIDE_PATHS}
+    paths, wide = {}, {}
+    for arch in MAIN_PATHS:
+        t1 = time.perf_counter()
+        paths[arch] = phase_main(torch, arch, (fa, ssd_k))
+        print(f"[time] {arch} main path and serving: "
+              f"{time.perf_counter() - t1:.0f} s", flush=True)
+    for arch in WIDE_PATHS:
+        t1 = time.perf_counter()
+        wide[arch] = phase_wide(torch, arch, (fa, ssd_k))
+        print(f"[time] {arch} wide path"
+              f"{' and serving' if arch in SERVE else ''}: "
+              f"{time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
     phase_churn(torch, (fa, ssd_k))
+    print(f"[time] churn: {time.perf_counter() - t1:.0f} s", flush=True)
+    served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
+              if run["serve"] is not None}
     kernels = []
     for name, (source, replaces, arch) in KERNELS.items():
         rec = record[name]["main-srv"]
@@ -1086,11 +1444,15 @@ def main() -> int:
                         "bound_simt_ms": rec["bound_simt_ms"],
                         "library_ms": rec["library_ms"],
                         "shape": rec["shape"],
-                        "device_shape": record[name]["main-dev"]})
+                        "device_shape": record[name]["main-dev"],
+                        "launches_by_path": {
+                            p: run["launches"][name]
+                            for p, run in {**paths, **wide}.items()},
+                        "serve_launches": {p: n[name]
+                                           for p, n in served.items()}})
+        if name.startswith("ssd_"):
+            kernels[-1]["jamba_row"] = record[name]["jamba"]
         if name.startswith("fa_"):
-            kernels[-1]["launches_by_path"] = {
-                arch: paths[arch]["launches"][name],
-                **{w: wide[w]["launches"][name] for w in wide}}
             kernels[-1]["hd128_rows"] = {c: record[name][c]
                                          for c in WIDE_TIMED}
             kernels[-1]["frontend_rows"] = {c: record[name][c]

@@ -9,7 +9,8 @@ never launches a forward kernel again (the JAX package's "kernel_out"
 checkpoint name).  ``_FlashAttention`` and ``_SSD`` are the ``custom_vjp``s
 of the JAX ``kernels/ops.py``: for attention the forward kernel, then
 Δ = rowsum(dO ⊙ O) as a torch op, then the dq and dk/dv kernels; for SSD
-the chunked-scan forward, then the reverse-scan backward.
+the chunked-scan forward, then the reverse-scan backward.  ``ssd_prefill``
+is the forward alone with the final state, for prefill: no gradient.
 """
 # No `from __future__ import annotations`: torch.library reads the op
 # schemas from the annotations at registration.
@@ -19,7 +20,7 @@ import torch
 
 from . import flash_attention as fa
 from . import ssd as ssd_k
-from .ref import pad_steps
+from .ref import pad_steps, ssd_final_state
 
 
 @torch.library.custom_op("repro_torch::fa_fwd", mutates_args=())
@@ -170,3 +171,23 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = 128):
                        for t in (x, dt, Bm, Cm))
     y = _SSD.apply(x32, dt, A.float().contiguous(), Bm, Cm, chunk)
     return y[:, :T].to(x.dtype)
+
+
+def ssd_prefill(x, dt, A, Bm, Cm, *, chunk: int = 128):
+    """The SSD forward with the state after the last step, for prefill:
+    (y (B, T, H, P) in x's dtype, final state (B, H, N, P) float32).  Pads
+    as :func:`ssd` does and launches the forward kernel once; its entry
+    state of the last chunk is then stepped through that chunk
+    (``ref.ssd_final_state``; the padded steps leave it unchanged).  The
+    outputs carry no gradient: the inputs are detached."""
+    T = x.shape[1]
+    chunk = min(chunk, T)
+    if chunk < 1:
+        raise ValueError(f"empty sequence: T={T}")
+    pad = (-T) % chunk
+    x32, dt, Bm, Cm = (pad_steps(t.detach().float(), pad).contiguous()
+                       for t in (x, dt, Bm, Cm))
+    A = A.detach().float().contiguous()
+    y, states = torch.ops.repro_torch.ssd_fwd(x32, dt, A, Bm, Cm, chunk)
+    return (y[:, :T].to(x.dtype),
+            ssd_final_state(x32, dt, A, Bm, states, chunk=chunk))

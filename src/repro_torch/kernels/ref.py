@@ -160,12 +160,26 @@ def _chunk(x, dt, Bm, Cm, c: int, chunk: int):
 def _chunk_tiles(dt, A, Bh, Ch):
     """Log-decay cumsum L (b, H, Q), its total, the scores C_t · B_s and
     the masked decay e^{L_t - L_s} [s <= t] (b, H, Q, Q)."""
-    Lcum = torch.cumsum(dt * A.to(dt.dtype)[None, :, None], dim=-1)
+    Lcum, Ltot = _log_decay(dt, A)
     Q = Lcum.shape[-1]
     tri = torch.ones(Q, Q, dtype=torch.bool, device=Lcum.device).tril()
     diff = (Lcum[..., :, None] - Lcum[..., None, :]).masked_fill(
         ~tri, float("-inf"))
-    return Lcum, Lcum[..., -1], Ch @ Bh.transpose(-1, -2), torch.exp(diff)
+    return Lcum, Ltot, Ch @ Bh.transpose(-1, -2), torch.exp(diff)
+
+
+def _log_decay(dt, A):
+    """A chunk's log-decay cumsum L (b, H, Q) and its total L_Q."""
+    Lcum = torch.cumsum(dt * A.to(dt.dtype)[None, :, None], dim=-1)
+    return Lcum, Lcum[..., -1]
+
+
+def _next_state(h, Lcum, Ltot, Bh, xb):
+    """The state after a chunk: h <- e^{L_Q} h + (B ⊙ e^{L_Q - L})ᵀ xb,
+    with xb = dt ⊙ x."""
+    w = torch.exp(Ltot[..., None] - Lcum)
+    return torch.exp(Ltot)[..., None, None] * h + \
+        (Bh * w[..., None]).transpose(-1, -2) @ xb
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
@@ -183,9 +197,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
         states.append(h)
         ys.append((scores * decay) @ xb +
                   (Ch * torch.exp(Lcum)[..., None]) @ h)
-        w = torch.exp(Ltot[..., None] - Lcum)
-        h = torch.exp(Ltot)[..., None, None] * h + \
-            (Bh * w[..., None]).transpose(-1, -2) @ xb
+        h = _next_state(h, Lcum, Ltot, Bh, xb)
     y = torch.cat(ys, dim=2).transpose(1, 2).contiguous()
     return y, torch.stack(states, dim=2), h
 
@@ -193,6 +205,16 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
 def ssd_fwd(x, dt, A, Bm, Cm, *, chunk: int):
     """Forward kernel: (y, entry states (B, H, nc, N, P)), float32."""
     return ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)[:2]
+
+
+def ssd_final_state(x, dt, A, Bm, states, *, chunk: int):
+    """The state after the last chunk, from the state entering it
+    (``states[:, :, -1]``), by ``ssd_scan``'s own update (``_next_state``)
+    over that chunk.  (b, H, N, P)."""
+    # the update reads no C: B stands in its place
+    xh, dth, Bh, _ = _chunk(x, dt, Bm, Bm, x.shape[1] // chunk - 1, chunk)
+    return _next_state(states[:, :, -1].to(xh.dtype), *_log_decay(dth, A),
+                       Bh, xh * dth[..., None])
 
 
 def ssd_bwd(x, dt, A, Bm, Cm, states, dy, *, chunk: int):

@@ -29,11 +29,16 @@ Examples::
     python -m repro_torch.launch.train --mode pod \\
         --arch qwen3-moe-235b-a22b --use-kernel --device cpu --batch 4 \\
         --H 2 --seq-len 16 --rounds 2
+    python -m repro_torch.launch.train --mode pod \\
+        --arch jamba-1.5-large-398b --use-kernel --device cpu --batch 4 \\
+        --H 2 --seq-len 16 --rounds 2
 
 ``--arch`` takes ``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``,
 ``qwen3-32b``, ``gemma2-27b``, ``llama-3.2-vision-90b``, ``whisper-tiny``
 (whose tok/s counts the decoder's ``--seq-len`` tokens, not the encoder's
-frames), ``qwen3-moe-235b-a22b`` and ``llama4-maverick-400b-a17b``.
+frames), ``qwen3-moe-235b-a22b``, ``llama4-maverick-400b-a17b`` and
+``jamba-1.5-large-398b``: all ten of the JAX package's archs.  Serving the
+trained model is ``repro_torch.launch.serve``.
 """
 from __future__ import annotations
 

@@ -5,10 +5,12 @@ One :class:`ArchConfig` describes a model whose layer stack repeats a
 ``pattern * n_periods``.  Per-position params are stacked over periods,
 leaves shaped ``(n_periods, ...)``, as in the JAX package.  The port runs
 the ``("attn", "dense")``, ``("local", "dense")``, ``("mamba", "none")``,
-``("cross", "dense")``, ``("attn", "none")`` and ``("attn", "moe")``
-blocks: decoder LMs (smollm, mamba2, command-r-plus, qwen3, gemma2), the
-mixture-of-experts LMs (qwen3-moe, llama4-maverick: ``n_experts`` experts,
-``top_k`` per token, capacity factor ``moe_capacity_factor``), the VLM
+``("cross", "dense")``, ``("attn", "none")``, ``("attn", "moe")``,
+``("mamba", "moe")`` and ``("mamba", "dense")`` blocks: decoder LMs
+(smollm, mamba2, command-r-plus, qwen3, gemma2), the mixture-of-experts
+LMs (qwen3-moe, llama4-maverick: ``n_experts`` experts, ``top_k`` per
+token, capacity factor ``moe_capacity_factor``), the hybrid (jamba:
+attention and Mamba blocks in one period, MoE on its odd positions), the VLM
 backbone whose cross blocks read the frontend stub's embeddings
 (llama-3.2-vision) and the encoder-decoder (whisper: ``n_layers`` encoder
 layers on the frame stub, ``n_decoder_layers`` decoder layers).

@@ -5,6 +5,8 @@ cross-attention (llama-3.2-vision's image layers, whisper's decoder).
 (``repro_torch.kernels.ops.flash_attention``) when ``use_kernel`` is set,
 otherwise to the plain ``sdpa_chunked``.  Both share the parameter layout
 and both are differentiable.  The projections stay ``torch.matmul``.
+``attention_decode`` is the one-token step over a KV cache
+(``kv_cache_init``), global or a ring of the window's length.
 """
 from __future__ import annotations
 
@@ -124,10 +126,13 @@ def sdpa_chunked(q, k, v, *, causal: bool, window: int | None,
 
 
 def attention_apply(params: dict, cfg: AttentionConfig, x, *, xkv=None,
-                    positions=None, use_kernel: bool = False):
-    """Full-sequence attention (training). x: (B, S, D).  Self-attention
-    rotates q and k (RoPE) and masks as ``cfg`` says; cross-attention to
-    ``xkv`` (B, Skv, D) has neither RoPE nor a causal mask."""
+                    positions=None, use_kernel: bool = False,
+                    return_kv: bool = False):
+    """Full-sequence attention (training, prefill). x: (B, S, D).
+    Self-attention rotates q and k (RoPE) and masks as ``cfg`` says;
+    cross-attention to ``xkv`` (B, Skv, D) has neither RoPE nor a causal
+    mask.  With ``return_kv`` also returns the (rotated) {"k", "v"}
+    (B, Skv, Hkv, hd) to prime the caches (prefill)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, xkv)
     if xkv is None:
@@ -145,4 +150,60 @@ def attention_apply(params: dict, cfg: AttentionConfig, x, *, xkv=None,
     else:
         out = sdpa_chunked(q, k, v, causal=causal, window=cfg.window,
                            logit_cap=cfg.attn_softcap, chunk_q=cfg.chunk_q)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"]
+    out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"]
+    if return_kv:
+        return out, {"k": k, "v": v}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode path
+# ---------------------------------------------------------------------------
+
+def kv_cache_init(cfg: AttentionConfig, batch: int, max_len: int,
+                  dtype=torch.float32, *, device=None) -> dict:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, device=device, dtype=dtype),
+            "v": torch.zeros(shape, device=device, dtype=dtype)}
+
+
+def attention_decode(params: dict, cfg: AttentionConfig, x, cache: dict,
+                     position: int, ring: bool = False):
+    """Single-token decode step.  x: (B, 1, D); cache {"k", "v"}
+    (B, T, Hkv, hd); ``position`` (a host int) is the new token's index,
+    the same for the whole batch.  Returns (out (B, 1, D), cache): the new
+    k and v are written into ``cache`` in place (the JAX package returns
+    an updated copy), as the port's train step updates its state.
+
+    ``ring`` treats the cache as a ring buffer of length T (a sliding-
+    window layer keeps only the last ``window`` K/V): the write index is
+    ``position % T`` and slot j holds position p_j = position - ((position
+    - j) % T), valid iff p_j >= 0.  RoPE uses absolute positions, so ring
+    slots stay rotated as written."""
+    B = x.shape[0]
+    T = cache["k"].shape[1]
+    q, k, v = _project_qkv(params, cfg, x)
+    pos = torch.full((B, 1), position, dtype=torch.int64, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    write = position % T if ring else position
+    cache["k"][:, write] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, write] = v[:, 0].to(cache["v"].dtype)
+    kv_pos = torch.arange(T, device=x.device)
+    if ring:
+        # the ring's length is the window: no further window mask
+        valid = position - torch.remainder(position - kv_pos, T) >= 0
+    else:
+        valid = kv_pos <= position
+        if cfg.window is not None:
+            valid &= kv_pos > position - cfg.window
+    hd, Hkv = cfg.hd, cfg.n_kv_heads
+    qg = q.reshape(B, 1, Hkv, cfg.n_heads // Hkv, hd).float()
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, cache["k"].float()) \
+        * (1.0 / math.sqrt(hd))
+    if cfg.attn_softcap is not None:
+        logits = softcap(logits, cfg.attn_softcap)
+    probs = torch.softmax(logits.masked_fill(~valid, -1e30), dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, cache["v"].float())
+    out = out.reshape(B, 1, cfg.n_heads * hd).to(x.dtype) @ params["wo"]
+    return out, cache

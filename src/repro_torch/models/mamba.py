@@ -1,12 +1,14 @@
-"""Mamba2 block (state-space duality / SSD), the training path.
+"""Mamba2 block (state-space duality / SSD).
 
 Follows arXiv:2405.21060, as the JAX package's ``models/mamba.py``.  The
 sequence mixer is the chunked SSD algorithm: a quadratic term within each
 chunk and a linear recurrence across chunks.  ``mamba_apply`` sends it to
 the CUDA SSD kernels (``repro_torch.kernels.ops.ssd``) when ``use_kernel``
 is set, otherwise to the plain ``ssd_chunked``; both are differentiable.
-Decode (``mamba_state_init``, ``mamba_decode``) and ``return_state`` come
-with the serving slice of the port.
+With ``return_state`` (prefill) it also returns the decode state after the
+last position; the kernel path then takes the forward kernel alone
+(``ops.ssd_prefill``, no gradient).  ``mamba_decode`` steps that state one
+token at a time.
 
 Shapes (per mamba2 conventions):
   x      (B, T, H, P)   inputs per head      (P = head_dim)
@@ -83,14 +85,17 @@ def _split_in_proj(cfg: MambaConfig, zxbcdt):
                        dim=-1)
 
 
-def _causal_conv(xBC, conv_w, conv_b):
+def _causal_conv(xBC, conv_w, conv_b, cache=None):
     """Depthwise causal conv over time, as a shift-sum.  xBC: (B, T, Cd);
-    conv_w: (K, Cd)."""
+    conv_w: (K, Cd); ``cache`` (B, K-1, Cd), the last K-1 inputs before
+    xBC (zeros when None).  Returns (out, the new cache)."""
     K, T = conv_w.shape[0], xBC.shape[1]
-    xp = Fn.pad(xBC, (0, 0, K - 1, 0))
+    xp = Fn.pad(xBC, (0, 0, K - 1, 0)) if cache is None else \
+        torch.cat([cache.to(xBC.dtype), xBC], dim=1)
     # sum_k w[k] * x[t - (K-1) + k]
     out = sum(xp[:, k:k + T, :] * conv_w[k][None, None, :] for k in range(K))
-    return silu(out + conv_b)
+    # a copy: a view would keep all of xp alive in the caches
+    return silu(out + conv_b), xp[:, T:, :].clone()
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int):
@@ -103,30 +108,77 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     return y, h_final
 
 
-def mamba_apply(params: dict, cfg: MambaConfig, x, use_kernel: bool = False):
-    """Full-sequence forward.  x: (B, T, d_model) -> (B, T, d_model)."""
+def mamba_apply(params: dict, cfg: MambaConfig, x, use_kernel: bool = False,
+                return_state: bool = False):
+    """Full-sequence forward.  x: (B, T, d_model) -> (B, T, d_model).
+    With ``return_state`` also returns the decode state after the last
+    position, {"ssm" (B, H, N, P) float32, "conv" (B, K-1, conv_dim)}, to
+    prime the caches (prefill)."""
     Bb, T, _ = x.shape
     H, G, N, P = cfg.n_heads, cfg.n_groups, cfg.d_state, cfg.head_dim
     z, xBC, dt = _split_in_proj(cfg, x @ params["in_proj"])
-    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+    xBC, conv_cache = _causal_conv(xBC, params["conv_w"], params["conv_b"])
     xi, Bm, Cm = torch.split(xBC, [cfg.d_inner, G * N, G * N], dim=-1)
     dt = Fn.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     xi = xi.reshape(Bb, T, H, P)
     Bm = Bm.reshape(Bb, T, G, N)
     Cm = Cm.reshape(Bb, T, G, N)
+    state = None
     if use_kernel:
         from repro_torch.kernels import ops as kops
-        # differentiable; ops.ssd clamps the chunk to T and pads
-        y = kops.ssd(xi, dt, A, Bm, Cm, chunk=cfg.chunk)
+        if return_state:   # the forward kernel alone; no gradient
+            y, state = kops.ssd_prefill(xi, dt, A, Bm, Cm, chunk=cfg.chunk)
+        else:              # differentiable; ops.ssd clamps and pads
+            y = kops.ssd(xi, dt, A, Bm, Cm, chunk=cfg.chunk)
     else:
         # pad T to a chunk multiple (zero dt => identity decay, zero input)
         Q = min(cfg.chunk, T)
         pad = (-T) % Q
-        y, _ = ssd_chunked(*(ref.pad_steps(t, pad) for t in (xi, dt)), A,
-                           *(ref.pad_steps(t, pad) for t in (Bm, Cm)), Q)
+        y, state = ssd_chunked(*(ref.pad_steps(t, pad) for t in (xi, dt)), A,
+                               *(ref.pad_steps(t, pad) for t in (Bm, Cm)), Q)
         y = y[:, :T]
     y = y + params["D"][None, None, :, None] * xi.float()
     y = y.reshape(Bb, T, cfg.d_inner).to(x.dtype)
     y = rmsnorm_apply(params["norm"], y * silu(z))
-    return y @ params["out_proj"]
+    out = y @ params["out_proj"]
+    if return_state:
+        return out, {"ssm": state, "conv": conv_cache}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token, recurrent state)
+# ---------------------------------------------------------------------------
+
+def mamba_state_init(cfg: MambaConfig, batch: int, dtype=torch.float32, *,
+                     device=None) -> dict:
+    return {
+        "ssm": torch.zeros(batch, cfg.n_heads, cfg.d_state, cfg.head_dim,
+                           device=device),
+        "conv": torch.zeros(batch, cfg.conv_kernel - 1, cfg.conv_dim,
+                            device=device, dtype=dtype),
+    }
+
+
+def mamba_decode(params: dict, cfg: MambaConfig, x, state: dict):
+    """One-step decode.  x: (B, 1, d_model) -> (y (B, 1, d_model), the new
+    state): h <- e^{dt A} h + dt B xᵀ, y = C · h + D x."""
+    Bb = x.shape[0]
+    H, G, N, P = cfg.n_heads, cfg.n_groups, cfg.d_state, cfg.head_dim
+    z, xBC, dt = _split_in_proj(cfg, x @ params["in_proj"])
+    xBC, conv_cache = _causal_conv(xBC, params["conv_w"], params["conv_b"],
+                                   cache=state["conv"])
+    xi, Bm, Cm = torch.split(xBC, [cfg.d_inner, G * N, G * N], dim=-1)
+    dt = Fn.softplus(dt.float() + params["dt_bias"])[:, 0]          # (B, H)
+    A = -torch.exp(params["A_log"])
+    xi = xi.reshape(Bb, H, P).float()
+    Bm = Bm.reshape(Bb, G, N).float().repeat_interleave(H // G, dim=1)
+    Cm = Cm.reshape(Bb, G, N).float().repeat_interleave(H // G, dim=1)
+    a = torch.exp(dt * A[None, :])                                  # (B, H)
+    h = state["ssm"] * a[..., None, None] + \
+        torch.einsum("bhn,bh,bhp->bhnp", Bm, dt, xi)
+    y = torch.einsum("bhn,bhnp->bhp", Cm, h) + params["D"][None, :, None] * xi
+    y = y.reshape(Bb, 1, cfg.d_inner).to(x.dtype)
+    y = rmsnorm_apply(params["norm"], y * silu(z))
+    return y @ params["out_proj"], {"ssm": h, "conv": conv_cache}

@@ -1,11 +1,14 @@
-"""Backbone assembly and the FedOptima split API, for stacks built of the
-("attn", "dense"), ("local", "dense"), ("mamba", "none"), ("cross",
-"dense"), ("attn", "none") and ("attn", "moe") blocks: global and
-sliding-window attention (with qk-norm and logit soft-caps where the arch
-sets them) before a dense FFN, the Mamba2 mixer alone, gated
-cross-attention to the frontend (``h + tanh(gate) * cross_attn(ln1(h),
-frontend)``, then the FFN), self-attention with no FFN (whisper's decoder
-pattern) and self-attention before the mixture of experts.
+"""Backbone assembly, the FedOptima split API and serving, for stacks built
+of the ("attn", "dense"), ("local", "dense"), ("mamba", "none"), ("cross",
+"dense"), ("attn", "none"), ("attn", "moe"), ("mamba", "moe") and
+("mamba", "dense") blocks: global and sliding-window attention (with
+qk-norm and logit soft-caps where the arch sets them) before a dense FFN,
+the Mamba2 mixer alone, gated cross-attention to the frontend (``h +
+tanh(gate) * cross_attn(ln1(h), frontend)``, then the FFN),
+self-attention with no FFN (whisper's decoder pattern), self-attention
+before the mixture of experts, and the Mamba2 mixer before the mixture of
+experts or a dense FFN (jamba's hybrid period: attention at position 0,
+MoE on the odd positions).
 
 Every block returns ``(h, aux)``: ``aux`` is a MoE block's load-balance
 loss, a 0-d tensor, and the float 0.0 elsewhere (no device op for the
@@ -32,25 +35,37 @@ backward; ``"selective"`` recomputes too but saves the forward kernels'
 outputs (flash attention's (out, lse), SSD's (y, states)), so the backward
 never launches a forward kernel again.  ``remat`` changes memory, never
 values.
+
+Serving runs the merged model (``merge_params``): ``prefill`` runs the
+prompt through the stack and primes the decode caches
+(``init_decode_state``'s layout: K/V per attention block, a ring of the
+window's length for a local block, the Mamba state, the frontend's K/V per
+cross block), and ``decode_step`` / ``serve_decode_step`` take one token a
+step, updating the caches in place.  With ``use_kernel``, prefill's
+self-attention takes the flash-attention forward kernel and its Mamba
+blocks the SSD forward kernel (``ops.ssd_prefill``); decode takes none.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.nn.functional as Fn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .api import ArchConfig
-from .attention import attention_apply, attention_init
+from .attention import (attention_apply, attention_decode, attention_init,
+                        kv_cache_init, sdpa_reference)
 from .common import (dense_init, embed_init, rmsnorm_apply, rmsnorm_init,
                      softcap, tree_map)
-from .mamba import mamba_apply, mamba_init
+from .mamba import mamba_apply, mamba_decode, mamba_init, mamba_state_init
 from .mlp import mlp_apply, mlp_init, moe_apply_grouped, moe_init
 
-#: (mixer, ffn) blocks the port runs so far.
+#: (mixer, ffn) blocks the port runs: all that the JAX package's archs use.
 BLOCKS = (("attn", "dense"), ("local", "dense"), ("mamba", "none"),
-          ("cross", "dense"), ("attn", "none"), ("attn", "moe"))
+          ("cross", "dense"), ("attn", "none"), ("attn", "moe"),
+          ("mamba", "moe"), ("mamba", "dense"))
 #: Weight of the stack's MoE load-balance loss in both halves' losses.
 MOE_AUX_WEIGHT = 0.01
 
@@ -130,20 +145,28 @@ def _decoder_cfg(cfg: ArchConfig) -> ArchConfig:
 # ---------------------------------------------------------------------------
 
 def _apply_block(p: dict, cfg: ArchConfig, mixer: str, ffn: str, h, *,
-                 positions, frontend=None, use_kernel: bool = False):
-    """One block: (h, aux), aux the MoE load-balance loss (0.0 without)."""
-    aux = 0.0
+                 positions, frontend=None, use_kernel: bool = False,
+                 return_state: bool = False):
+    """One block: (h, aux), aux the MoE load-balance loss (0.0 without).
+    With ``return_state`` (prefill), (h, aux, state): the mixer's state
+    for the decode caches (the rotated k and v, the frontend's k and v, or
+    the Mamba state)."""
+    aux, state = 0.0, {}
     x = rmsnorm_apply(p["ln1"], h)
     if mixer == "mamba":
-        h = h + mamba_apply(p["mixer"], cfg.mamba_cfg(), x,
-                            use_kernel=use_kernel)
+        y = mamba_apply(p["mixer"], cfg.mamba_cfg(), x, use_kernel=use_kernel,
+                        return_state=return_state)
     elif mixer == "cross":
         # never the kernel: the JAX package's cross call takes none either
-        h = h + torch.tanh(p["gate"]) * attention_apply(
-            p["mixer"], cfg.cross_cfg(), x, xkv=frontend)
+        y = attention_apply(p["mixer"], cfg.cross_cfg(), x, xkv=frontend,
+                            return_kv=return_state)
     else:
-        h = h + attention_apply(p["mixer"], cfg.attn_cfg(mixer), x,
-                                positions=positions, use_kernel=use_kernel)
+        y = attention_apply(p["mixer"], cfg.attn_cfg(mixer), x,
+                            positions=positions, use_kernel=use_kernel,
+                            return_kv=return_state)
+    if return_state:
+        y, state = y
+    h = h + (torch.tanh(p["gate"]) * y if mixer == "cross" else y)
     if ffn == "dense":
         h = h + mlp_apply(p["ffn"], cfg.mlp_cfg(), rmsnorm_apply(p["ln2"], h))
     elif ffn == "moe":
@@ -151,6 +174,8 @@ def _apply_block(p: dict, cfg: ArchConfig, mixer: str, ffn: str, h, *,
                                    rmsnorm_apply(p["ln2"], h),
                                    capacity_factor=cfg.moe_capacity_factor)
         h = h + y
+    if return_state:
+        return h, aux, state
     return h, aux
 
 
@@ -165,6 +190,10 @@ def _save_kernel_out(ctx, op, *args, **kwargs):
 
 _selective_context = functools.partial(create_selective_checkpoint_contexts,
                                        _save_kernel_out)
+
+
+def _periods(blocks: list) -> int:
+    return blocks[0]["ln1"]["scale"].shape[0]
 
 
 def _run_stack(blocks: list, cfg: ArchConfig, h, *, positions,
@@ -182,8 +211,7 @@ def _run_stack(blocks: list, cfg: ArchConfig, h, *, positions,
         return h, aux_total
 
     aux_sum = 0.0
-    n = blocks[0]["ln1"]["scale"].shape[0]
-    for i in range(n):
+    for i in range(_periods(blocks)):
         stacks_slice = [tree_map(lambda x: x[i], s) for s in blocks]
         if remat == "selective":
             h, aux = checkpoint(period_fn, h, stacks_slice,
@@ -398,3 +426,204 @@ def server_encdec_loss(srv_params: dict, cfg: ArchConfig, acts, tokens,
     h = rmsnorm_apply(srv_params["dec_norm"], h)
     return chunked_ce_loss(head, cfg, h, labels) + \
         MOE_AUX_WEIGHT * (aux_e + aux_d)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and cached decode of the merged model
+# ---------------------------------------------------------------------------
+
+def forward(params: dict, cfg: ArchConfig, tokens, *, frontend=None,
+            use_kernel: bool = False, remat=True):
+    """The whole stack: (final hidden states (B, S, D), the MoE loss).
+    ``tokens`` is (B, S) ids, or (B, F, D) frame embeddings for an
+    encoder."""
+    h = params["embed"][tokens] if tokens.ndim == 2 else tokens
+    h, aux = _run_stack(params["blocks"], cfg, h, positions=_positions(h),
+                        frontend=frontend, use_kernel=use_kernel, remat=remat)
+    return rmsnorm_apply(params["final_norm"], h), aux
+
+
+def _lm_logits(params: dict, cfg: ArchConfig, h):
+    w = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+    logits = h @ w
+    if cfg.final_softcap is not None:
+        logits = softcap(logits, cfg.final_softcap)
+    return logits
+
+
+def _decoder_params(params: dict) -> dict:
+    """An enc-dec model's decoder as a stack of its own."""
+    dec = {"embed": params["embed"], "blocks": params["dec_blocks"],
+           "final_norm": params["dec_norm"]}
+    if "lm_head" in params:
+        dec["lm_head"] = params["lm_head"]
+    return dec
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype=torch.float32, frontend_len: int | None = None,
+                      *, device=None) -> list:
+    """Per pattern position, the caches of its mixer stacked over the
+    periods (leaves (n_periods, ...)): K/V of ``max_len`` positions (of
+    ``min(max_len, window)`` for a local block), the Mamba state, the
+    frontend's K/V for a cross block, {} for a block with no state."""
+    n = cfg.n_periods
+    caches = []
+    for mixer, _ in cfg.pattern:
+        if mixer in ("attn", "local"):
+            L = min(max_len, cfg.window) \
+                if (mixer == "local" and cfg.window) else max_len
+            c = kv_cache_init(cfg.attn_cfg(mixer), batch, L, dtype,
+                              device=device)
+        elif mixer == "mamba":
+            c = mamba_state_init(cfg.mamba_cfg(), batch, dtype, device=device)
+        elif mixer == "cross":
+            c = kv_cache_init(cfg.cross_cfg(), batch,
+                              frontend_len or cfg.frontend_len, dtype,
+                              device=device)
+        else:
+            c = {}
+        caches.append(tree_map(lambda x: x.expand(n, *x.shape).clone(), c))
+    return caches
+
+
+def decode_step(params: dict, cfg: ArchConfig, caches: list, token,
+                position: int, *, frontend=None):
+    """token: (B, 1) ids; ``position`` (a host int) its index.  Returns
+    (logits (B, V), caches), the caches updated in place.  An enc-dec
+    model goes through ``serve_decode_step``.  ``frontend`` is unused (the
+    cross blocks read their primed caches) and kept only to match the
+    JAX package's signature."""
+    h = params["embed"][token]
+    for i in range(_periods(params["blocks"])):
+        for pos, (mixer, ffn) in enumerate(cfg.pattern):
+            p = tree_map(lambda x: x[i], params["blocks"][pos])
+            c = tree_map(lambda x: x[i], caches[pos])     # views: written
+            x = rmsnorm_apply(p["ln1"], h)
+            if mixer in ("attn", "local"):
+                ring = mixer == "local" and cfg.window is not None
+                y, _ = attention_decode(p["mixer"], cfg.attn_cfg(mixer), x,
+                                        c, position, ring=ring)
+                h = h + y
+            elif mixer == "mamba":
+                y, new = mamba_decode(p["mixer"], cfg.mamba_cfg(), x, c)
+                for key, t in new.items():
+                    c[key].copy_(t)
+                h = h + y
+            elif mixer == "cross":
+                # cached cross K/V (from the frontend, at prefill)
+                h = h + torch.tanh(p["gate"]) * _cross_decode(
+                    p["mixer"], cfg.cross_cfg(), x, c)
+            if ffn == "dense":
+                h = h + mlp_apply(p["ffn"], cfg.mlp_cfg(),
+                                  rmsnorm_apply(p["ln2"], h))
+            elif ffn == "moe":
+                y, _ = moe_apply_grouped(
+                    p["ffn"], cfg.moe_cfg(), rmsnorm_apply(p["ln2"], h),
+                    capacity_factor=max(4.0, cfg.moe_capacity_factor))
+                h = h + y
+    h = rmsnorm_apply(params["final_norm"], h)
+    return _lm_logits(params, cfg, h)[:, 0], caches
+
+
+def _cross_decode(p: dict, acfg, q_in, cache: dict):
+    """Cross-attention during decode: K/V from the (static) frontend
+    cache."""
+    B = q_in.shape[0]
+    q = (q_in @ p["wq"]).reshape(B, 1, acfg.n_heads, acfg.hd)
+    out = sdpa_reference(q, cache["k"], cache["v"], causal=False,
+                         window=None, logit_cap=None)
+    return out.reshape(B, 1, acfg.n_heads * acfg.hd) @ p["wo"]
+
+
+def _state_to_cache(cfg: ArchConfig, mixer: str, st: dict, S: int,
+                    max_len: int) -> dict:
+    """A block's prefill state in ``init_decode_state``'s layout, so decode
+    goes on at position S.  Where S >= W, the cache's length, the last W
+    positions lie on the ring: slot j holds the position p with
+    p % W == j."""
+    if mixer in ("attn", "local"):
+        W = min(max_len, cfg.window) \
+            if (mixer == "local" and cfg.window) else max_len
+
+        def place(x):
+            if S >= W:
+                idx = torch.remainder(
+                    torch.arange(W, device=x.device) - S % W, W)
+                return x[:, S - W:][:, idx]
+            return Fn.pad(x, (0, 0, 0, 0, 0, W - S))
+        return {"k": place(st["k"]), "v": place(st["v"])}
+    if mixer in ("mamba", "cross"):
+        return st
+    return {}
+
+
+def prefill(params: dict, cfg: ArchConfig, tokens, *, max_len=None,
+            frontend=None, use_kernel: bool = False):
+    """Run the prompt through the stack and prime the decode caches:
+    (last-position logits (B, V), caches in ``init_decode_state``'s layout
+    for ``max_len`` positions), so decode goes on at position S.  An
+    enc-dec model runs the encoder on ``frontend`` and prefills its decoder
+    on ``tokens``, with the cross caches from the encoder's output.  With
+    ``use_kernel`` the self-attention blocks take the flash-attention
+    forward kernel and the Mamba blocks the SSD forward kernel; the cross
+    blocks never take one."""
+    if cfg.n_decoder_layers:
+        enc, _ = forward(params, cfg, frontend, use_kernel=use_kernel,
+                         remat=False)
+        return prefill(_decoder_params(params), _decoder_cfg(cfg), tokens,
+                       max_len=max_len, frontend=enc, use_kernel=use_kernel)
+    h = params["embed"][tokens] if tokens.ndim == 2 else tokens
+    S = h.shape[1]
+    L = max_len or S
+    positions = _positions(h)
+    per = [[] for _ in cfg.pattern]
+    for i in range(_periods(params["blocks"])):
+        for pos, (mixer, ffn) in enumerate(cfg.pattern):
+            p = tree_map(lambda x: x[i], params["blocks"][pos])
+            h, _, st = _apply_block(p, cfg, mixer, ffn, h,
+                                    positions=positions, frontend=frontend,
+                                    use_kernel=use_kernel, return_state=True)
+            per[pos].append(_state_to_cache(cfg, mixer, st, S, L))
+    caches = [tree_map(lambda *xs: torch.stack(xs), *c) for c in per]
+    h = rmsnorm_apply(params["final_norm"], h[:, -1:])
+    return _lm_logits(params, cfg, h)[:, 0], caches
+
+
+def serve_decode_step(params: dict, cfg: ArchConfig, caches: list, token,
+                      position: int):
+    """``decode_step``, through the decoder stack for an enc-dec model
+    (its cross caches primed by ``prefill``)."""
+    if cfg.n_decoder_layers:
+        return decode_step(_decoder_params(params), _decoder_cfg(cfg),
+                           caches, token, position)
+    return decode_step(params, cfg, caches, token, position)
+
+
+def init_serve_state(cfg: ArchConfig, batch: int, max_len: int,
+                     dtype=torch.float32, *, device=None) -> list:
+    """``init_decode_state``, of the decoder stack for an enc-dec model."""
+    if cfg.n_decoder_layers:
+        return init_decode_state(_decoder_cfg(cfg), batch, max_len, dtype,
+                                 frontend_len=cfg.frontend_len, device=device)
+    return init_decode_state(cfg, batch, max_len, dtype,
+                             frontend_len=cfg.frontend_len or None,
+                             device=device)
+
+
+def prefill_cross_cache(params: dict, cfg: ArchConfig, frontend) -> list:
+    """Per pattern position, the cross blocks' K/V of the frontend
+    embeddings (B, F, D), stacked over the periods; None elsewhere."""
+    B, F, _ = frontend.shape
+    hd = cfg.cross_cfg().hd
+    caches = []
+    for pos, (mixer, _) in enumerate(cfg.pattern):
+        if mixer != "cross":
+            caches.append(None)
+            continue
+        w = params["blocks"][pos]["mixer"]
+        caches.append({
+            name: torch.stack([(frontend @ wi).reshape(B, F, cfg.n_kv_heads,
+                                                       hd) for wi in w[key]])
+            for name, key in (("k", "wk"), ("v", "wv"))})
+    return caches

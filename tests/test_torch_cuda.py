@@ -5,6 +5,10 @@ machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+It also holds serving's forward-only SSD entry (``ops.ssd_prefill``)
+against the plain scan's final state, and ``attention_decode`` on the card
+against the CPU.
+
 It also holds the pipelined executor to what only the card shows: its
 handles keep their round across in-place updates, window 2 overlaps host
 work with the card's, and a round's dispatch makes no host sync.
@@ -153,6 +157,79 @@ def test_cuda_ssd_is_deterministic(kernel):
     first, second = call(), call()
     for name, a, b in zip(names, first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,a_min", [
+    ((2, 1024, 48, 64, 1, 128, 256), -48.0),    # mamba2-780m's prefill
+    ((2, 1000, 8, 64, 2, 128, 256), -8.0),      # padded, grouped B/C
+    ((2, 100, 4, 64, 1, 128, 256), -4.0),       # T < chunk
+])
+def test_cuda_ssd_prefill_matches_plain_final_state(shape, a_min):
+    """``ops.ssd_prefill``, serving's forward-only SSD entry, launches the
+    forward kernel once and gives y and the final state of
+    ``ref.ssd_scan`` on the padded inputs, at the SSD tolerance (the
+    state's scale is its head's largest |value|, as the states')."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import ops
+    x, dt, A, Bm, Cm, _ = ssd_inputs(shape, a_min)
+    chunk = min(shape[-1], shape[1])
+    ssd_k.reset_launches()
+    y, h = ops.ssd_prefill(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_k.launches == {"ssd_fwd": 1, "ssd_bwd": 0}
+    pad = (-shape[1]) % chunk
+    y_r, _, h_r = tref.ssd_scan(*(tref.pad_steps(t, pad) for t in (x, dt)),
+                                A, *(tref.pad_steps(t, pad) for t in (Bm, Cm)),
+                                chunk=chunk)
+    scale = tref.ssd_scales(x, dt, A, {"y": y_r[:, :shape[1]],
+                                       "states": h_r[:, :, None]})
+    for got, want, sc in ((y, y_r[:, :shape[1]], scale["y"]),
+                          (h, h_r, scale["states"][:, :, 0])):
+        err = (got - want).abs()
+        assert torch.isfinite(got).all()
+        assert bool((err <= 1e-4 * sc + 1e-3 * want.abs()).all()), \
+            f"max abs err {float(err.max()):.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,cap,ring", [(None, None, False),
+                                             (6, 50.0, True),
+                                             (6, None, False)],
+                         ids=["global", "ring-capped", "window"])
+def test_cuda_attention_decode_matches_cpu(window, cap, ring):
+    """``attention_decode`` on the card against the CPU on the same params,
+    cache and token: the output and the cache it writes in place, at
+    position 13 (past the ring's length of 6, so the ring has wrapped)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.models import attention as tattn
+    cfg = tattn.AttentionConfig(d_model=256, n_heads=8, n_kv_heads=2,
+                                head_dim=64, window=window,
+                                attn_softcap=cap)
+    g = torch.Generator().manual_seed(0)
+    params = tattn.attention_init(g, cfg)
+    T = window if ring else 32
+    cache = {k: torch.randn(2, T, 2, 64, generator=g) for k in ("k", "v")}
+    x = torch.randn(2, 1, 256, generator=g)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            c = {k: v.to(dev) for k, v in cache.items()}
+            y, c = tattn.attention_decode(tree_map(lambda t: t.to(dev),
+                                                   params), cfg, x.to(dev),
+                                          c, 13, ring=ring)
+            out[dev] = (y.cpu(), {k: v.cpu() for k, v in c.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-5,
+                               rtol=1e-5)
+    for k in ("k", "v"):
+        torch.testing.assert_close(out["cuda"][1][k], out["cpu"][1][k],
+                                   atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

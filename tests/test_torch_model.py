@@ -1,14 +1,16 @@
 """The torch port's model functions against the JAX package's, on the same
 params (converted from the JAX init) and the same numpy inputs, for smoke
 smollm-135m, mamba2-780m, qwen3-32b, gemma2-27b, llama-3.2-vision-90b,
-whisper-tiny, qwen3-moe-235b-a22b and llama4-maverick-400b-a17b: attention
+whisper-tiny, qwen3-moe-235b-a22b, llama4-maverick-400b-a17b and
+jamba-1.5-large-398b: attention
 (with qk-norm, and with soft-cap and sliding window), the gated cross
 block, the MLPs (SwiGLU, GeGLU, GELU), the Mamba2 block, the capped CE over
 the tied and the untied head, the next-frame aux MSE, and the two halves'
 losses with their gradients (the VLM's with its frontend, whisper's
-encoder prefix on frames and its enc-dec server loss, the MoE archs' with
-their load-balance loss), each with the kernel ops (flash attention, SSD)
-on and off.  The MoE FFN alone is held in ``tests/test_torch_moe.py``.  Tolerance: the
+encoder prefix on frames and its enc-dec server loss, the MoE archs' and jamba's
+hybrid period with their load-balance loss), each with the kernel ops
+(flash attention, SSD) on and off, and jamba's Mamba blocks before the
+MoE and the dense FFN.  The MoE FFN alone is held in ``tests/test_torch_moe.py``.  Tolerance: the
 reference's own gradient tolerance, 1e-4 (``tests/test_kernel_grads.py``
 GTOL); float32 matmuls of XLA and of torch on the CPU differ in their last
 bits.
@@ -44,8 +46,9 @@ VISION = "llama-3.2-vision-90b"  # gated cross blocks on the frontend
 WHISPER = "whisper-tiny"       # enc-dec on the frame stub
 QWEN3_MOE = "qwen3-moe-235b-a22b"     # ("attn", "moe"), top-2 of 8 (smoke)
 LLAMA4 = "llama4-maverick-400b-a17b"  # ("attn", "moe"), ("attn", "dense")
+JAMBA = "jamba-1.5-large-398b"  # attention, then ("mamba", "moe" | "dense")
 ALL_ARCHS = (ARCH, MAMBA, "command-r-plus-104b", QWEN3, GEMMA2, VISION,
-             WHISPER, QWEN3_MOE, LLAMA4)
+             WHISPER, QWEN3_MOE, LLAMA4, JAMBA)
 B, S = 2, 16
 # (arch, use_kernel); the smollm cases keep their ids
 ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
@@ -61,7 +64,9 @@ ARCH_KERNEL = [pytest.param(ARCH, False, id="False"),
                pytest.param(QWEN3_MOE, False, id="qwen3-moe-False"),
                pytest.param(QWEN3_MOE, True, id="qwen3-moe-True"),
                pytest.param(LLAMA4, False, id="llama4-False"),
-               pytest.param(LLAMA4, True, id="llama4-True")]
+               pytest.param(LLAMA4, True, id="llama4-True"),
+               pytest.param(JAMBA, False, id="jamba-False"),
+               pytest.param(JAMBA, True, id="jamba-True")]
 # whisper's server half is server_encdec_loss, tested on its own
 WHISPER_KERNEL = [pytest.param(WHISPER, False, id="whisper-False"),
                   pytest.param(WHISPER, True, id="whisper-True")]
@@ -296,7 +301,7 @@ def test_chunked_ce_loss_final_softcap_matches_jax(tie, cap):
 
 
 @pytest.mark.parametrize("arch", ["command-r-plus-104b", QWEN3, GEMMA2,
-                                  VISION, WHISPER, QWEN3_MOE, LLAMA4])
+                                  VISION, WHISPER, QWEN3_MOE, LLAMA4, JAMBA])
 def test_convert_goes_across_by_key(arch):
     """The JAX init converted to the port holds the same leaves under the
     same keys (q_norm, k_norm, lm_head, the MoE router and experts
@@ -558,6 +563,39 @@ def test_cross_block_matches_jax(arch, stack, pos):
     _close(got.detach().numpy(), want)
     _close((_grads(tp), th.grad.numpy(), tfe.grad.numpy()), want_g)
     assert abs(float(want_g[0]["gate"])) > 1e-3     # the gate trains
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("pos,ffn", [(1, "moe"), (2, "dense")],
+                         ids=["mamba-moe", "mamba-dense"])
+def test_mamba_ffn_blocks_match_jax(pos, ffn, use_kernel):
+    """jamba's Mamba blocks before the MoE FFN (the odd positions of its
+    period) and before the dense FFN: the block's output, its load-balance
+    loss and the gradients of its params and its input, with the SSD op on
+    and off."""
+    st = _setup(JAMBA)
+    cfg, tcfg = st["cfg"], treg.smoke_config(JAMBA)
+    assert cfg.pattern[pos] == tcfg.pattern[pos] == ("mamba", ffn)
+    p = jax.tree.map(lambda x: np.array(x[0]), st["full"]["blocks"][pos])
+    h = st["acts"]
+    r = np.random.default_rng(9).standard_normal(h.shape).astype(np.float32)
+
+    def jloss(p, h):
+        y, aux = jtfm._apply_block(p, cfg, "mamba", ffn, h,
+                                   positions=np.arange(S)[None],
+                                   use_kernel=use_kernel)
+        return jax.numpy.sum(y * r) + aux, (y, aux)
+    (_, (want, want_aux)), want_g = _jvg(jloss, p, h)
+    tp = _leaves_grad(state_from_numpy(p, "cpu"))
+    th = torch.from_numpy(h).requires_grad_()
+    got, aux = ttfm._apply_block(tp, tcfg, "mamba", ffn, th,
+                                 positions=ttfm._positions(th),
+                                 use_kernel=use_kernel)
+    (torch.sum(got * torch.from_numpy(r)) + aux).backward()
+    _close(got.detach().numpy(), want)
+    _close(float(torch.as_tensor(aux).detach()), want_aux)
+    _close((_grads(tp), th.grad.numpy()), want_g)
+    assert (ffn == "moe") == (float(want_aux) > 0)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])
