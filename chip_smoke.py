@@ -53,8 +53,8 @@ exits non-zero:
    and plans: the kernels launch as reckoned from H, G and the split and
    the plain path never, losses within 1e-3 relative, params within
    ``PARAMS_TOL`` and finite; the second kernel round profiled; then the
-   driver (``repro_torch.launch.train.run_pod``, five rounds of smollm,
-   three of mamba2) with the kernels at ``--window 1`` and ``--window 2``
+   driver (``repro_torch.launch.train.run_pod``, four rounds of smollm,
+   two of mamba2) with the kernels at ``--window 1`` and ``--window 2``
    in turns (1, 2), each run with every kernel's launches counted over the run (rounds x the per-round count)
    and its peak memory, steady tok/s, host seconds inside ``step()`` per
    round and the executor's summary; the two windows' histories must be
@@ -80,7 +80,7 @@ exits non-zero:
    The driver feeds zero frontends, as the JAX driver does, so whisper's
    device loss is exactly 0 on both paths.
 5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
-   six rounds at windows 1 and 2: bit-identical histories and final
+   four rounds at windows 1 and 2: bit-identical histories and final
    params, and a dropped group must have been retired (gathered from the
    live state at a boundary) in both runs.
 6. serving (``SERVE``), run right after each served path's driver: smollm,
@@ -94,6 +94,25 @@ exits non-zero:
    ``SERVE_DECODE_TOL``); then greedy
    generation on both, with prefill ms, decode ms per step, tok/s, peak
    memory and the greedy tokens that differ printed.
+
+7. sim — the sim-mode FedOptima learner, which runs no kernel of the five
+   (their counts must stay 0): (a) ``launch/train.run_sim`` at its
+   defaults on the card (8 devices, 300 simulated seconds, VGG-5 at
+   16x16, ω=8, H=10, pool = ω): the flow cap held, accuracy above chance;
+   its idle fractions, throughput, accuracy, memory line, balance, wall
+   seconds, device and server steps per wall second and peak memory.
+   (b) the VGG-5 learner at 32x32 through ``simulate_fedoptima`` (K=4, 40
+   simulated seconds) from one init and the same data on the card
+   (profiled: the card's busy share) and on the CPU, which replays the
+   card's ReLU masks and max-pool choices (``ReplayChoices``; how many it
+   would have taken otherwise is printed): every ``Metrics`` field, the
+   hook counts and ``memory_summary`` bit-identical, the final
+   aggregated device params, aux and server params within
+   ``SIM_PARAMS_TOL`` of each leaf's largest |value|.  (c) the paper's
+   four models at their published sizes (``SIM_MODELS``: VGG-5,
+   MobileNetV3ish, Transformer-6 and -12), each through the learner for
+   a short run (K=4): losses finite, hook counts equal to the simulator's;
+   ms per device step, server step and aggregation, and peak memory.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -152,7 +171,7 @@ MAIN_PATHS = {  # arch: its own flags
     "smollm-135m": ["--arch", "smollm-135m", "--l-split", "3"],
     "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "6"],
 }
-DRIVER_ROUNDS = {"smollm-135m": 5, "mamba2-780m": 3}   # per driver run
+DRIVER_ROUNDS = {"smollm-135m": 4, "mamba2-780m": 2}   # per driver run
 # The windows of the driver runs: one turn of each.  The windows'
 # histories are compared, and phase 5 runs both windows again under churn;
 # a timing of one tree against another in paired turns is
@@ -753,16 +772,18 @@ def phase_ssd_conditioning(torch, ssd_k, ref) -> None:
 # 4. the main paths
 # ---------------------------------------------------------------------------
 
-def profile_round(torch, round_fn, top=12):
+def profile_round(torch, round_fn, top=12, busy=None, host_ops=True):
     """One kernel-path round, ``round_fn()``, under torch.profiler: device
     time by kernel and the device's busy share of the round's wall time
-    (the profiler's own overhead is inside that wall time).  Returns the
-    round's result."""
+    (the profiler's own overhead is inside that wall time; ``host_ops``
+    False leaves the host's ops unrecorded, which costs far less where
+    they are many and small).  Returns the round's result;
+    ``busy["share"]`` is set to the busy share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_ops +
+                 [ProfilerActivity.CUDA]) as prof:
         out = round_fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -771,12 +792,14 @@ def profile_round(torch, round_fn, top=12):
     # the device time (never both: that would count it twice)
     events = [e for e in events if e.device_type.name == "CUDA"] or events
     kernels = [(e.key, e.self_device_time_total / 1e3) for e in events]
-    busy = sum(ms for _, ms in kernels)
+    busy_ms = sum(ms for _, ms in kernels)
+    if busy is not None:
+        busy["share"] = busy_ms / wall_ms
     print(f"[profile] one round: wall {wall_ms:.1f} ms, device busy "
-          f"{busy:.1f} ms ({busy / wall_ms:.1%}), idle "
-          f"{1 - busy / wall_ms:.1%}")
+          f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), idle "
+          f"{1 - busy_ms / wall_ms:.1%}")
     for name, ms in sorted(kernels, key=lambda x: -x[1])[:top]:
-        print(f"[profile]   {ms:9.2f} ms {ms / busy:6.1%}  {name[:100]}")
+        print(f"[profile]   {ms:9.2f} ms {ms / busy_ms:6.1%}  {name[:100]}")
     return out
 
 
@@ -1139,19 +1162,19 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
 
 def phase_churn(torch, counters) -> None:
     """smollm-135m at full width and full depth (30 layers) under churn
-    (--p-drop 0.3, 6 rounds) at windows 1 and 2: the histories and the
+    (--p-drop 0.3, 4 rounds) at windows 1 and 2: the histories and the
     final params must be bit-identical, and both runs must have retired a
     dropped group."""
     from repro_torch.models.common import tree_leaves
     t0 = time.perf_counter()
     runs = {w: drive(torch, *main_setup("smollm-135m", [
-        "--rounds", "6", "--window", str(w), "--p-drop", "0.3"]), counters,
+        "--rounds", "4", "--window", str(w), "--p-drop", "0.3"]), counters,
         keep_final=True) for w in (1, 2)}
     same_hist = runs[1]["history"] == runs[2]["history"]
     same_params = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(runs[1]["final"]), tree_leaves(runs[2]["final"])))
     retention = {w: runs[w]["executor"]["retention"] for w in (1, 2)}
-    print(f"[churn] smollm-135m full width, 30 layers, --p-drop 0.3, 6 "
+    print(f"[churn] smollm-135m full width, 30 layers, --p-drop 0.3, 4 "
           f"rounds: windows 1 and 2 histories bit-identical {same_hist}, "
           f"final params bit-identical {same_params}; retention {retention},"
           f" window 2 handle_bytes_peak "
@@ -1392,6 +1415,377 @@ def phase_serve(torch, arch, params, counters) -> dict:
     return n_k
 
 
+# ---------------------------------------------------------------------------
+# 7. the sim-mode FedOptima learner
+# ---------------------------------------------------------------------------
+
+# run_sim's costs (simulated seconds come from these, not from the card)
+SIM_COSTS = dict(dev_fwd_flops=2e9, dev_bwd_flops=4e9, full_fwd_flops=6e9,
+                 srv_flops_per_batch=1.2e10, act_bytes=2e6,
+                 dev_model_bytes=1e6, full_model_bytes=4e6, batch_size=32)
+# (b): VGG-5 at 32x32, K=4, 40 simulated seconds, on the card and the CPU
+SIM_CARD_CPU = dict(img=32, K=4, duration=40.0)
+# (b): the card's final params against the CPU's, max |difference| over
+# each leaf's largest |value| on the CPU, with the card's ReLU and pool
+# choices replayed on the CPU (without the replay a near-tie that rounds
+# the other way moves a gradient by ~6e-3 of its leaf, and the run's
+# unstable first server steps grow that to ~0.4)
+SIM_PARAMS_TOL = 1e-3
+# (c): the paper's models at their published sizes, each with its split and
+# SGD rate, K=4, a short run.  At run_sim's rate of 0.05 the text models'
+# server loss grows past 1e6 and turns NaN within about 20 steps, in the
+# JAX package's learner as in the port's (a CPU run of both on these
+# data), so they train at 0.002.
+SIM_MODELS = {  # name: (module, config, l_split, lr)
+    "vgg5": ("cnn", "vgg5_config", 1, 0.05),
+    "mobilenetv3ish": ("cnn", "mobilenetv3ish_config", 4, 0.05),
+    "transformer6": ("text_classifier", "transformer6_config", 3, 0.002),
+    "transformer12": ("text_classifier", "transformer12_config", 3, 0.002),
+}
+SIM_SAMPLES = 1024
+SIM_MODEL_DURATION = 10.0
+
+
+class TimedHooks:
+    """A learner's hooks, each call timed to its end on the card (a sync on
+    either side), its last loss kept: the simulator calls these."""
+
+    def __init__(self, torch, learner):
+        self.torch, self.learner = torch, learner
+        self.ms = {"device_iter": [], "server_train": [], "aggregate": []}
+        self.losses = []
+
+    def _call(self, name, *args):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(self.learner, name)(*args)
+        self.torch.cuda.synchronize()
+        self.ms[name].append((time.perf_counter() - t0) * 1e3)
+
+    def device_iter(self, k, send):
+        self._call("device_iter", k, send)
+        self.losses.append(self.learner.dev_loss)
+
+    def server_train(self, k):
+        self._call("server_train", k)
+        self.losses.append(self.learner.srv_loss)
+
+    def aggregate(self, k):
+        self._call("aggregate", k)
+
+
+def _sim_datasets(cfg, K, samples=SIM_SAMPLES, seed=0):
+    """Per-device shards: images from ``classification_dataset`` split by
+    the Dirichlet partitioner, tokens and labels drawn from the seed."""
+    import numpy as np
+    from repro_torch.data.partitioner import dirichlet_partition
+    from repro_torch.data.pipeline import DeviceDataset
+    from repro_torch.data.synthetic import classification_dataset
+    if hasattr(cfg, "img_size"):
+        data = classification_dataset(samples, cfg.n_classes,
+                                      img_size=cfg.img_size, seed=seed)
+        x, y = data.x, data.y
+    else:
+        rng = np.random.default_rng(seed)
+        x = rng.integers(0, cfg.vocab, size=(samples, cfg.seq_len),
+                         dtype=np.int32)
+        y = rng.integers(0, cfg.n_classes, size=samples, dtype=np.int32)
+    parts = dirichlet_partition(y, K, alpha=0.5, seed=seed)
+    return [DeviceDataset(x[ix], y[ix], batch=32, seed=g)
+            for g, ix in enumerate(parts)]
+
+
+def sim_learner_run(torch, adapter, datasets, l_split, device, duration,
+                    init=None, hooks=None, lr=0.05):
+    """The learner through ``simulate_fedoptima`` (ω=8, pool 8, H=10, over
+    ``heterogeneous_cluster(K)``): (Metrics, ControlPlane, learner)."""
+    from repro_torch.core.control_plane import ControlPlane
+    from repro_torch.core.learning import FedOptimaLearner
+    from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
+                                             simulate_fedoptima)
+    K = len(datasets)
+    learner = FedOptimaLearner(adapter, datasets, l_split, lr_d=lr, lr_s=lr,
+                               device=device, init=init)
+    control = ControlPlane.for_sim(K, 8, pool_cap=8)
+    m = simulate_fedoptima(SimModel(**SIM_COSTS), heterogeneous_cluster(K),
+                           duration=duration, omega=8, H=10, pool_cap=8,
+                           control=control,
+                           hooks=learner if hooks is None else hooks(learner))
+    return m, control, learner
+
+
+def _sim_counts(m, control, learner) -> dict:
+    """Everything the run counted, learner-independent and learner-side."""
+    import numpy as np
+    out = {}
+    for f in dataclasses.fields(m):
+        v = getattr(m, f.name)
+        out[f.name] = v.summary() if f.name == "profiles" else \
+            v.tolist() if isinstance(v, np.ndarray) else v
+    out.update(steady=m.steady_summary(), balance=m.contribution_balance(),
+               memory=control.memory_summary(),
+               versions=control.versions.tolist(),
+               control=(control.version, control.n_accepted,
+                        control.n_rejected),
+               hooks=(learner.dev_steps, learner.srv_steps, learner.consumed,
+                      learner.versions, learner.agg.version,
+                      learner.agg.n_accepted, learner.agg.n_rejected))
+    return out
+
+
+def _check_hook_counts(name, m, control, learner) -> None:
+    """The learner trained what the simulator scheduled."""
+    got = (learner.dev_steps * SIM_COSTS["batch_size"], learner.srv_steps,
+           learner.agg.n_accepted + learner.agg.n_rejected,
+           sum(learner.consumed.values()))
+    want = (m.dev_samples, m.srv_batches, control.n_accepted,
+            int(m.dev_consumed.sum()))
+    if got != want or m.aggregations != control.n_accepted + \
+            control.n_rejected:
+        raise AssertionError(f"{name}: hook counts {got} != the simulator's "
+                             f"{want}")
+
+
+def _rel_gap(a, b) -> float:
+    """max |a - b| over max |b|, for a leaf on any device and one on the
+    host (0 where both are 0)."""
+    scale = b.abs().max().item()
+    diff = (a.detach().cpu() - b).abs().max().item()
+    return diff / scale if scale else diff
+
+
+class ReplayChoices:
+    """The discrete choices of the CNN's layers, taken in one run and
+    replayed in call order in another: each ReLU's mask (``torch.relu``)
+    and each 2x2 max pool's argmax (``cnn._max_pool2``).  A near-tie that
+    rounds one way on the card and the other on the CPU then takes the
+    card's side in both runs, as ``replay_route`` does for a router's
+    choices: the replayed ReLU is x times the card's mask (so is its
+    gradient), the replayed pool gathers the card's
+    argmax (and routes the gradient there).  ``otherwise`` counts the
+    choices the replaying run would have made otherwise, of ``total``."""
+
+    def __init__(self, torch):
+        from collections import deque
+        self.torch, self.queue = torch, deque()
+        self.otherwise = self.total = 0
+
+    def _swap(self, relu, pool):
+        from repro_torch.models import cnn
+        old = self.torch.relu, cnn._max_pool2
+        self.torch.relu, cnn._max_pool2 = relu, pool
+        return old
+
+    def run(self, mode, fn):
+        """``fn()`` with the choices recorded (``mode="record"``) or
+        replayed (``"replay"``)."""
+        torch, F = self.torch, self.torch.nn.functional
+        relu0 = torch.relu
+
+        def relu_record(x):
+            self.queue.append(x > 0)
+            return relu0(x)
+
+        def pool_record(x):
+            y, idx = F.max_pool2d(x.permute(0, 3, 1, 2), 2,
+                                  return_indices=True)
+            self.queue.append(idx)
+            return y.permute(0, 2, 3, 1)
+
+        def relu_replay(x):
+            mask = self.queue.popleft().to(x.device)
+            self.otherwise += int(((x > 0) != mask).sum())
+            self.total += mask.numel()
+            return x * mask
+
+        def pool_replay(x):
+            idx = self.queue.popleft().to(x.device)
+            xc = x.permute(0, 3, 1, 2)
+            own = F.max_pool2d(xc, 2, return_indices=True)[1]
+            self.otherwise += int((own != idx).sum())
+            self.total += idx.numel()
+            y = xc.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            return y.permute(0, 2, 3, 1)
+
+        record = mode == "record"
+        old = self._swap(relu_record if record else relu_replay,
+                         pool_record if record else pool_replay)
+        try:
+            return fn()
+        finally:
+            self._swap(*old)
+
+
+def sim_card_vs_cpu(torch, img, K, duration, profile=False) -> dict:
+    """(b): the same VGG-5 FedOptimaLearner through ``simulate_fedoptima``
+    from one init (drawn on the CPU from seed 0) and the same data, once on
+    the card and once on the CPU, which replays the card run's ReLU masks
+    and pool choices (``ReplayChoices``).  Every count must be
+    bit-identical, and the final aggregated device params, aux and server
+    params must agree within ``SIM_PARAMS_TOL`` of each leaf's largest
+    |value|.  Returns the counts, the gaps, the choices replayed and the
+    card's busy share (with ``profile``, from the profiled card run)."""
+    from repro_torch.core.learning import ModelAdapter
+    from repro_torch.models import cnn
+    from repro_torch.models.common import tree_leaves, tree_map
+    cfg = cnn.vgg5_config(img_size=img)
+    adapter = ModelAdapter(cnn, cfg)
+    gen = torch.Generator().manual_seed(0)
+    dev0, srv = adapter.split(adapter.init(gen), 1)
+    aux0, _ = adapter.make_aux(gen, 1)
+    replay = ReplayChoices(torch)
+    runs, busy, seconds = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        init = tree_map(lambda t: t.to(device), (dev0, srv, aux0))
+
+        def run():
+            return replay.run(
+                "record" if device == "cuda" else "replay",
+                lambda: sim_learner_run(torch, adapter, _sim_datasets(cfg, K),
+                                        1, device, duration, init=init))
+        if device == "cuda" and profile:
+            runs[device] = profile_round(torch, run, top=6, busy=busy,
+                                         host_ops=False)
+        else:
+            t0 = time.perf_counter()
+            runs[device] = run()
+            seconds[device] = time.perf_counter() - t0
+    counts = {d: _sim_counts(*r) for d, r in runs.items()}
+    if counts["cuda"] != counts["cpu"]:
+        diff = [k for k in counts["cpu"] if counts["cuda"][k] !=
+                counts["cpu"][k]]
+        raise AssertionError(f"sim card vs CPU: counts differ in {diff}")
+    if replay.queue:
+        raise AssertionError(f"sim card vs CPU: {len(replay.queue)} of the "
+                             "card's choices were not replayed")
+    a, b = runs["cuda"][2], runs["cpu"][2]
+    gaps = {tag: max(_rel_gap(x, y) for x, y in zip(tree_leaves(p),
+                                                    tree_leaves(q)))
+            for tag, p, q in (("agg.theta_d", a.agg.theta_d, b.agg.theta_d),
+                              ("agg.theta_aux", a.agg.theta_aux,
+                               b.agg.theta_aux),
+                              ("srv", a.srv, b.srv))}
+    if not max(gaps.values()) <= SIM_PARAMS_TOL:
+        raise AssertionError(f"sim card vs CPU: params gaps {gaps} past "
+                             f"{SIM_PARAMS_TOL} of the leaf's max |value|")
+    return {"counts": counts["cuda"], "gaps": gaps,
+            "otherwise": (replay.otherwise, replay.total),
+            "busy": busy.get("share"), "cpu_s": seconds.get("cpu")}
+
+
+def phase_sim(torch, counters) -> dict:
+    """(a) run_sim at the reference's defaults on the card; (b) card
+    against CPU (``sim_card_vs_cpu``, profiled); (c) the paper's four
+    models at their published sizes through the learner.  No kernel of
+    the five runs on this path: their counts must stay 0."""
+    import math
+    from repro_torch.core.learning import ModelAdapter
+    from repro_torch.launch import train
+    from repro_torch.models import cnn, text_classifier
+    t0 = time.perf_counter()
+    for c in counters:
+        c.reset_launches()
+    # (a) run_sim at its defaults
+    args = train.build_parser().parse_args(["--mode", "sim"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    out = train.run_sim(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    mem = out["memory"]
+    dev_steps = out["registry"]["counters"]["sim.dev_samples"] // \
+        SIM_COSTS["batch_size"]
+    srv_steps = sum(out["consumed"])
+    print(f"[sim] (a) run_sim --mode sim on {args.device}: {args.devices} "
+          f"devices, {args.duration} s simulated, VGG-5 16x16, omega 8, H "
+          f"10, pool {mem['pool_cap']}: srv idle {out['srv_idle']:.4f} dev "
+          f"idle {out['dev_idle']:.4f} throughput {out['throughput']:.2f} "
+          f"samples/s accuracy {out['accuracy']:.4f} | memory {mem} | "
+          f"balance {out['contribution_balance']} | wall {wall:.3f} s, "
+          f"{dev_steps} device steps ({dev_steps / wall:.1f}/s), "
+          f"{srv_steps} server steps ({srv_steps / wall:.1f}/s), peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+          flush=True)
+    if mem["peak_buffered"] > mem["omega"] + mem["pool_cap"]:
+        raise AssertionError(f"sim: flow cap broken: {mem}")
+    if not (math.isfinite(out["accuracy"]) and out["accuracy"] > 0.1):
+        raise AssertionError(f"sim: accuracy {out['accuracy']} is not "
+                             "above chance (10 classes)")
+    # (b) card against CPU
+    t1 = time.perf_counter()
+    b = sim_card_vs_cpu(torch, **SIM_CARD_CPU, profile=True)
+    c = b["counts"]
+    print(f"[sim] (b) VGG-5 {SIM_CARD_CPU['img']}x{SIM_CARD_CPU['img']}, K="
+          f"{SIM_CARD_CPU['K']}, {SIM_CARD_CPU['duration']} s simulated, card"
+          f" vs CPU from one init, the CPU replaying the card's ReLU and "
+          f"pool choices ({b['otherwise'][0]} of {b['otherwise'][1]} chose "
+          f"otherwise): every Metrics field, the hook counts and "
+          f"memory_summary bit-identical (dev_samples {c['dev_samples']}, "
+          f"srv_batches {c['srv_batches']}, aggregations "
+          f"{c['aggregations']}, memory {c['memory']}); final params, "
+          f"max|card - cpu| / max|cpu| per leaf, worst: "
+          f"{ {k: f'{v:.3e}' for k, v in b['gaps'].items()} } <= "
+          f"{SIM_PARAMS_TOL}; card busy {b['busy']:.1%} of the profiled "
+          f"run; the CPU run {b['cpu_s']:.1f} s on {torch.get_num_threads()}"
+          f" threads | {time.perf_counter() - t1:.1f} s", flush=True)
+    # (c) the paper's models at their published sizes
+    models = {}
+    for name, (mod, make, l_split, lr) in SIM_MODELS.items():
+        module = {"cnn": cnn, "text_classifier": text_classifier}[mod]
+        cfg = getattr(module, make)()
+        datasets = _sim_datasets(cfg, 4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = {}
+
+        def hooks(learner):
+            timed["hooks"] = TimedHooks(torch, learner)
+            return timed["hooks"]
+        m, control, learner = sim_learner_run(
+            torch, ModelAdapter(module, cfg), datasets, l_split, "cuda",
+            SIM_MODEL_DURATION, hooks=hooks, lr=lr)
+        th = timed["hooks"]
+        finite = bool(torch.isfinite(torch.stack(th.losses)).all())
+        _check_hook_counts(name, m, control, learner)
+        if not finite:
+            raise AssertionError(f"sim {name}: a loss is not finite")
+        med = {k: statistics.median(v) for k, v in th.ms.items() if v}
+        mean = {k: statistics.fmean(v) for k, v in th.ms.items() if v}
+        models[name] = {"ms_median": med, "ms_mean": mean,
+                        "steps": (learner.dev_steps, learner.srv_steps),
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"[sim] (c) {name} ({_sim_describe(cfg)}, l_split {l_split}, "
+              f"lr {lr}, K=4, {SIM_MODEL_DURATION} s simulated): "
+              f"{learner.dev_steps} "
+              f"device / {learner.srv_steps} server steps / "
+              f"{len(th.ms['aggregate'])} aggregations, counts equal to the "
+              f"Metrics', losses finite (last device "
+              f"{learner.dev_loss.item():.4f}, server "
+              f"{learner.srv_loss.item():.4f}) | ms per device step median "
+              f"{med['device_iter']:.3f} mean {mean['device_iter']:.3f}, per "
+              f"server step median {med['server_train']:.3f} mean "
+              f"{mean['server_train']:.3f}, per aggregation median "
+              f"{med.get('aggregate', math.nan):.3f} | peak memory "
+              f"{models[name]['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    if any(launches.values()):
+        raise AssertionError(f"sim: a kernel of the five ran: {launches}")
+    print(f"[sim] kernel launches over the phase: {launches} | phase "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    return {"run_sim": out, "card_vs_cpu": b, "models": models}
+
+
+def _sim_describe(cfg) -> str:
+    if hasattr(cfg, "img_size"):
+        return (f"{cfg.img_size}x{cfg.img_size}x{cfg.in_channels}, "
+                f"{cfg.n_classes} classes, {len(cfg.layers)} layers")
+    enc = [s for s in cfg.layers if s["kind"] == "enc"]
+    return (f"vocab {cfg.vocab}, seq {cfg.seq_len}, d_model {cfg.d_model}, "
+            f"{len(enc)} encoders of {enc[0]['heads']} heads, "
+            f"{cfg.n_classes} classes")
+
+
 def main() -> int:
     # llama-vision's plain rounds peak within ~6 GiB of the card's 79.18:
     # segments that grow in place keep the allocator's freed blocks usable
@@ -1429,6 +1823,9 @@ def main() -> int:
     t1 = time.perf_counter()
     phase_churn(torch, (fa, ssd_k))
     print(f"[time] churn: {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    phase_sim(torch, (fa, ssd_k))
+    print(f"[time] sim: {time.perf_counter() - t1:.0f} s", flush=True)
     served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
               if run["serve"] is not None}
     kernels = []

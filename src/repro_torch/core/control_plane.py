@@ -19,9 +19,16 @@ plus the ``retire``/``restore`` group lists for dropped and rejoining
 groups, whose dev/aux params the driver moves through the
 :class:`RetentionStore`.
 
-A copy of the JAX package's pod path with the spill tier off
-(``pool_cap=0``): the tiered store, checkpointing of the plan and the
-event-simulator hooks come with later slices of the port.
+The same class fronts the event simulator (``simulation.py``): there the
+scheduler and flow units are per-device activation batches, which the
+simulator drives in event order, with the per-arrival staleness hooks
+(``aggregate_arrival``, ``device_synced``); :meth:`ControlPlane.for_sim`
+builds that configuration, whose spill budget is the flow controller's
+arithmetic alone.
+
+A copy of the JAX package's control plane with the pod path's spill tier
+off (``pool_cap=0``): the tiered store and checkpointing of the plan come
+with later slices of the port.
 """
 from __future__ import annotations
 
@@ -98,30 +105,44 @@ class RetentionStore:
 
 class ControlPlane:
     """TaskScheduler + FlowController + staleness accounting, round-planned.
-    One flow unit is one group's rows in a slot (token budget ω·G)."""
+
+    ``unit`` is the flow-control granularity: "group" for the pod path
+    (one unit = one group's rows in a slot; token budget ω·G) and "device"
+    for the event simulator (one unit = one device activation batch;
+    budget ω, the paper's strict Eq. 3 bookkeeping, tiered by pool_cap).
+    """
 
     def __init__(self, n_groups: int, omega: int, H: int = 1, *,
                  policy: str = "counter", max_delay: int = 16,
-                 alpha_power: float = 1.0, pool_cap: int = 0,
-                 eviction: str = "share"):
+                 alpha_power: float = 1.0, unit: str = "group",
+                 pool_cap: int = 0, eviction: str = "share"):
         if omega < 1 or n_groups < 1:
             raise ValueError(
                 f"need omega >= 1 and n_groups >= 1, got omega={omega}, "
                 f"n_groups={n_groups} (ω is the Eq. 3 activation cap)")
-        if pool_cap != 0:
+        if pool_cap < 0:
+            raise ValueError(f"pool_cap must be >= 0, got {pool_cap}")
+        if unit not in ("group", "device"):
+            raise ValueError(
+                f"unknown flow unit {unit!r}; expected 'group' (pod path) "
+                "or 'device' (event simulator)")
+        if unit == "group" and pool_cap != 0:
             raise NotImplementedError(
-                f"pool_cap={pool_cap}: the tiered activation store comes "
-                "with a later slice of the torch port (queue A, the memory "
-                "store); this control plane runs the hard-ω ring")
+                f"pool_cap={pool_cap}: the pod path's tiered activation "
+                "store is not in the torch port yet; it comes with ROADMAP "
+                "item A2, the tiered activation store")
         self.G = n_groups
         self.omega = omega
         self.H = H
         self.max_delay = max_delay
         self.alpha_power = alpha_power
+        self.unit = unit
         self.pool_cap = pool_cap
         self.mem_policy = make_eviction_policy(eviction)
         self.scheduler = TaskScheduler(n_groups, policy=policy)
-        self.flow = FlowController(omega=omega * n_groups)
+        per_unit = n_groups if unit == "group" else 1
+        self.flow = FlowController(omega=omega * per_unit,
+                                   pool_cap=pool_cap * per_unit)
         for g in range(n_groups):
             self.flow.register(g)
         self.versions = np.zeros(n_groups, np.int64)   # t_g
@@ -135,6 +156,12 @@ class ControlPlane:
         self._slot_groups = [set() for _ in range(omega)]
         self._next_write = 0
         self._last_read = 0
+
+    @classmethod
+    def for_sim(cls, n_devices: int, omega: int, **kw):
+        """Control plane for the event simulator: per-device flow units so
+        Σ_k |Q_k^act| ≤ ω holds exactly as written in Eq. 3."""
+        return cls(n_devices, omega, unit="device", **kw)
 
     # ------------------------------------------------------------------
     # plan one round of H micro-iterations
@@ -268,6 +295,25 @@ class ControlPlane:
         for g in np.flatnonzero(active):
             self.versions[g] = self.version
 
+    # -- event-simulator staleness hooks (per arrival; the version always
+    #    advances: the simulator counts every aggregation event) --
+    def aggregate_arrival(self, k: int, t_k: int) -> float:
+        """One device model arrived (sim path): returns its α (0 =
+        rejected as too stale, Alg. 4 line 13)."""
+        t = self.version
+        w = staleness_weight(t - int(t_k), self.max_delay,
+                             self.alpha_power)
+        if w > 0.0:
+            self.n_accepted += 1
+        else:
+            self.n_rejected += 1
+        self.version = t + 1
+        return w
+
+    def device_synced(self, k: int):
+        """Device k received the global model back (Alg. 4 line 20)."""
+        self.versions[k] = self.version
+
     # ------------------------------------------------------------------
     # introspection
     # ------------------------------------------------------------------
@@ -288,3 +334,24 @@ class ControlPlane:
     @property
     def within_cap(self) -> bool:
         return self.flow.within_cap and self.live_slots <= self.omega
+
+    def note_buffered(self, n: int):
+        """Record an externally observed buffer occupancy (sim path)."""
+        self.peak_buffered = max(self.peak_buffered, n)
+
+    def memory_summary(self) -> dict:
+        """JSON-able tier accounting: spill/fill/eviction counts + peaks.
+        The pod path has no spill tier in the port yet (its counts are
+        0); the event simulator's come from the flow controller, one per
+        device activation batch admitted past ω."""
+        out = {"omega": self.omega, "pool_cap": self.pool_cap,
+               "eviction": self.mem_policy.name,
+               "peak_buffered": int(self.peak_buffered)}
+        if self.unit == "group":
+            out.update(spills=0, fills=0, evictions=0, pool_live=0,
+                       peak_pool=0,
+                       peak_live_slots=int(self.peak_live_slots))
+        else:
+            out.update(spills=self.flow.n_spilled, fills=self.flow.n_filled,
+                       evictions=0)
+        return out

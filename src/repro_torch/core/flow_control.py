@@ -7,9 +7,17 @@ promised stays within ω — a strict invariant::
 
     buffered + inflight + active_tokens <= omega        (always)
 
-Grants go round-robin.  A copy of the JAX package's controller without its
-sanitizer hooks, its spill-tier budget (``pool_cap``) and its quarantine
-path, which come with the tiered-store and fault slices.
+Grants go round-robin.
+
+Tiered budget: with ``pool_cap > 0`` admission is accounted against the
+total budget ω + pool_cap, and ``omega`` stays the first tier's capacity;
+admissions beyond it are counted by ``n_spilled``, and ``n_filled`` counts
+the dequeues that bring such a unit back under it.  This is accounting
+only (the event simulator's default budget); no store is involved.  With
+``pool_cap == 0`` the controller is the strict Eq. 3 one, bit for bit.
+
+A copy of the JAX package's controller without its sanitizer hooks and its
+quarantine path, which come with the fault plane.
 """
 from __future__ import annotations
 
@@ -19,12 +27,20 @@ from dataclasses import dataclass, field
 
 @dataclass
 class FlowController:
-    omega: int                              # activation cap ω
+    omega: int                              # first-tier activation cap ω
+    pool_cap: int = 0                       # spill-tier budget (flow units)
     sender_active: dict = field(default_factory=dict)   # device -> bool
     buffered: int = 0                       # Σ_k |Q_k^act| (server view)
     inflight_by: dict = field(default_factory=dict)     # device -> sends
+    n_spilled: int = 0                      # admissions beyond ω
+    n_filled: int = 0                       # spilled units dequeued
     grants: deque = field(default_factory=lambda: deque(maxlen=256))
     _rr: list = field(default_factory=list)              # round-robin order
+
+    @property
+    def cap(self) -> int:
+        """Total admission budget: ω + pool_cap."""
+        return self.omega + self.pool_cap
 
     def register(self, k: int):
         """New device: its sender starts inactive; a token is granted if
@@ -34,6 +50,9 @@ class FlowController:
         self.sender_active[k] = False
         self._rr.append(k)
         self._maybe_grant()
+
+    def unregister(self, k: int):
+        self.on_device_left(k)
 
     # -- device side --
     def can_send(self, k: int) -> bool:
@@ -45,9 +64,12 @@ class FlowController:
             raise RuntimeError(
                 f"device {k} sent without a token (buffered={self.buffered}, "
                 f"inflight={self.inflight}, tokens={self.active_tokens}, "
-                f"cap={self.omega})")
+                f"cap={self.cap})")
         self.sender_active[k] = False
         self.inflight_by[k] = self.inflight_by.get(k, 0) + 1
+
+    def inflight_of(self, k: int) -> int:
+        return self.inflight_by.get(k, 0)
 
     # -- server side --
     def on_enqueue(self, k: int) -> bool:
@@ -61,10 +83,14 @@ class FlowController:
         else:
             self.inflight_by[k] = n - 1
         self.buffered += 1
+        if self.buffered > self.omega:
+            self.n_spilled += 1    # admitted into the spill tier
         self._maybe_grant()
         return True
 
     def on_dequeue(self, k: int):
+        if self.buffered > self.omega:
+            self.n_filled += 1     # a spilled unit moves up a tier
         self.buffered = max(0, self.buffered - 1)
         self._maybe_grant()
 
@@ -94,7 +120,7 @@ class FlowController:
             return
         n = len(self._rr)
         scanned = 0
-        while self.promised < self.omega and scanned < n:
+        while self.promised < self.cap and scanned < n:
             k = self._rr.pop(0)      # a scanned device moves to the back
             self._rr.append(k)
             scanned += 1
@@ -105,4 +131,5 @@ class FlowController:
 
     @property
     def within_cap(self) -> bool:
-        return self.buffered <= self.omega and self.promised <= self.omega
+        """Buffered and promised units within ω + pool_cap."""
+        return self.buffered <= self.cap and self.promised <= self.cap

@@ -7,7 +7,9 @@ get():  models first (priority); else the activation queue of the device
 The counter-based policy prevents fast devices from dominating server-side
 training (Challenge 3).  A FIFO policy is included for the §6.5.2 ablation.
 A copy of the JAX package's scheduler without its sanitizer hooks and its
-spill-tier withdrawal, which come with the tiered store's slice.
+spill-tier withdrawal, which come with the tiered store's slice.  The pod
+path carries ring slots in ``content``; the event simulator also stamps
+each activation with its size and arrival time.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ class Message:
     kind: str              # "model" | "activation"
     origin: int            # device id
     content: Any = None
+    size_bytes: float = 0.0
+    enqueued_at: float = 0.0
 
 
 class TaskScheduler:
@@ -116,6 +120,18 @@ class TaskScheduler:
                             pass
                     break
             self._purge_if_drained(g)
+
+    # -- introspection --
+    @property
+    def total_buffered(self) -> int:
+        return sum(len(q) for q in self.q_act.values())
+
+    def buffered(self, k: int) -> int:
+        return len(self.q_act.get(k, ()))
+
+    @property
+    def has_model(self) -> bool:
+        return bool(self.q_model)
 
     @property
     def has_activation(self) -> bool:

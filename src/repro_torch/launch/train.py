@@ -1,4 +1,5 @@
-"""Training driver: the FedOptima pod round on one card.
+"""Training driver: the FedOptima pod round on one card, and the paper's
+testbed in the event simulator (``--mode sim``).
 
 ``--mode pod`` runs the hybrid round (``core/fedopt_step``) for ``--rounds``
 rounds through the pipelined ``RoundExecutor`` (``core/executor``), with
@@ -33,6 +34,17 @@ Examples::
         --arch jamba-1.5-large-398b --use-kernel --device cpu --batch 4 \\
         --H 2 --seq-len 16 --rounds 2
 
+``--mode sim`` (``run_sim``) drives a VGG-5 ``FedOptimaLearner`` on the card
+through the event simulator over ``--devices`` heterogeneous devices
+(default 8) for ``--duration`` simulated seconds (default 300), with ω=8,
+H=10 and a spill budget of pool = ω unless ``--omega``, ``--H`` and
+``--pool-cap`` say otherwise; it prints the JAX driver's lines, and its
+event metrics are the JAX package's::
+
+    python -m repro_torch.launch.train --mode sim
+    python -m repro_torch.launch.train --mode sim --device cpu --devices 4 \
+        --duration 30
+
 ``--arch`` takes ``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``,
 ``qwen3-32b``, ``gemma2-27b``, ``llama-3.2-vision-90b``, ``whisper-tiny``
 (whose tok/s counts the decoder's ``--seq-len`` tokens, not the encoder's
@@ -53,13 +65,13 @@ from repro_torch.core.control_plane import ControlPlane
 from repro_torch.core.executor import (RoundExecutor, StragglerProfiles,
                                        completion_gap_s)
 from repro_torch.core.staging import to_device
+from repro_torch.data.partitioner import dirichlet_partition
 from repro_torch.data.synthetic import lm_dataset
 
 #: Flags whose machinery comes with later items of ROADMAP.md's queue A:
 #: flag -> (attribute, the value that means "off", the item that brings it).
+#: Unset (None) is off too.
 LATER = {
-    "--mode sim": ("mode", "pod", "A6, the sim-mode learners"),
-    "--pool-cap": ("pool_cap", 0, "A2, the tiered activation store"),
     "--ckpt-dir": ("ckpt_dir", None, "A3, checkpoints"),
     "--faults": ("faults", None, "A7, the fault plane"),
     "--fleet-trace": ("fleet_trace", None, "A7, the fleet plane"),
@@ -70,12 +82,17 @@ LATER = {
     "--metrics-every": ("metrics_every", 0, "A7, the metrics dumps"),
     "--metrics-out": ("metrics_out", None, "A7, the metrics dumps"),
 }
+#: Refused in pod mode alone: the simulator's spill budget is flow-control
+#: arithmetic, the pod path's needs the store.
+POD_LATER = {
+    "--pool-cap": ("pool_cap", 0, "A2, the tiered activation store"),
+}
 
 
-def _refuse_later_slices(args) -> None:
-    for flag, (attr, off, later) in LATER.items():
+def _refuse_later_slices(args, table) -> None:
+    for flag, (attr, off, later) in table.items():
         value = getattr(args, attr, off)
-        if value != off:
+        if value is not None and value != off:
             raise NotImplementedError(
                 f"{flag}={value!r}: not in the torch port yet; it comes with "
                 f"ROADMAP item {later}")
@@ -151,7 +168,7 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     ``StragglerProfiles`` (uniform by default), and may pass ``cfg`` to run
     in place of ``pod_config(args)`` (e.g. a full-width arch cut in depth
     with ``ArchConfig.scaled``)."""
-    _refuse_later_slices(args)
+    _refuse_later_slices(args, {**LATER, **POD_LATER})
     window = _pipeline_window(args)
     device = torch.device(args.device)
     cfg = cfg or pod_config(args)
@@ -217,6 +234,95 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
             "round_stats": executor.stats, "state": state}
 
 
+# ---------------------------------------------------------------------------
+# sim mode (paper testbed)
+# ---------------------------------------------------------------------------
+
+def run_sim(args) -> dict:
+    """The JAX driver's ``run_sim``: a VGG-5 FedOptima learner (16x16
+    images, 10 classes, l_split 1) on ``args.device`` in the event
+    simulator over ``heterogeneous_cluster(args.devices)``.  Prints the
+    reference's lines and returns its dict; ``"registry"`` is the port's
+    ``MetricsRegistry`` snapshot."""
+    _refuse_later_slices(args, LATER)
+    from repro_torch.core.learning import FedOptimaLearner, ModelAdapter
+    from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
+                                             simulate_fedoptima)
+    from repro_torch.data.pipeline import DeviceDataset
+    from repro_torch.data.synthetic import classification_dataset
+    from repro_torch.models import cnn
+
+    # the paper's lab defaults ω=8, H=10 apply when the flags are unset
+    omega = getattr(args, "omega", None) or 8
+    H = getattr(args, "H", None) or 10
+    policy = getattr(args, "policy", "counter")
+    max_delay = getattr(args, "max_delay", 16)
+    # sim default pool = ω: the lab testbed's tiered budget (2ω admission)
+    pool_cap = getattr(args, "pool_cap", None)
+    pool_cap = omega if pool_cap is None else pool_cap
+
+    data = classification_dataset(4096, 10, img_size=16, seed=args.seed)
+    parts = dirichlet_partition(data.y, args.devices, alpha=0.5,
+                                seed=args.seed)
+    mcfg = cnn.vgg5_config(n_classes=10, img_size=16)
+    adapter = ModelAdapter(cnn, mcfg)
+    datasets = [DeviceDataset(data.x[ix], data.y[ix], batch=32, seed=g)
+                for g, ix in enumerate(parts)]
+    learner = FedOptimaLearner(adapter, datasets, l_split=1,
+                               lr_d=0.05, lr_s=0.05,
+                               device=getattr(args, "device", "cuda"))
+    sim_model = SimModel(dev_fwd_flops=2e9, dev_bwd_flops=4e9,
+                         full_fwd_flops=6e9, srv_flops_per_batch=1.2e10,
+                         act_bytes=2e6, dev_model_bytes=1e6,
+                         full_model_bytes=4e6, batch_size=32)
+    cluster = heterogeneous_cluster(args.devices)
+    control = ControlPlane.for_sim(args.devices, omega, policy=policy,
+                                   max_delay=max_delay, pool_cap=pool_cap)
+    profiles = StragglerProfiles(args.devices)
+    metrics = simulate_fedoptima(sim_model, cluster, duration=args.duration,
+                                 omega=omega, H=H, policy=policy,
+                                 max_delay=max_delay, pool_cap=pool_cap,
+                                 seed=args.seed, hooks=learner,
+                                 control=control, profiles=profiles)
+    xte, yte = data.x[:512], data.y[:512]
+    acc = learner.eval_accuracy(xte, yte)
+    # the measured per-device profiles drive a straggler-aware plan: slow
+    # devices are scheduled fewer emissions per round, the server reads at
+    # its measured cadence — the same patterns run_pod feeds per round
+    produce, reads = profiles.produce(H), profiles.reads(H)
+    print(f"sim: {args.devices} devices, {args.duration}s simulated | "
+          f"srv idle {metrics.srv_idle_frac:.1%}  dev idle "
+          f"{metrics.dev_idle_frac:.1%}  throughput {metrics.throughput:.0f} "
+          f"samples/s  train-set acc {acc:.3f}")
+    print(f"measured straggler profile: emissions/round "
+          f"{produce.sum(axis=0).tolist()} of H={H}, server reads "
+          f"{int(reads.sum())}/{H}")
+    mem = control.memory_summary()
+    print(f"memory: tiered budget ω={omega}+pool={pool_cap}, peak buffered "
+          f"{mem['peak_buffered']} batches, spills {mem['spills']}  "
+          f"fills {mem['fills']}")
+    bal = metrics.contribution_balance()
+    print(f"contribution balance: consumed={metrics.dev_consumed.tolist()}  "
+          f"gini={bal['gini']:.3f}  cv={bal['cv']:.3f}  "
+          f"participants={bal['participants']}/{args.devices}")
+    steady = metrics.steady_summary()
+    if steady:
+        print(f"steady state (post-warmup {steady['warmup_s']:.1f}s): "
+              f"srv idle {steady['srv_idle_frac_steady']:.1%}  dev idle "
+              f"{steady['dev_idle_frac_steady']:.1%}  throughput "
+              f"{steady['throughput_steady']:.0f} samples/s")
+    return {"accuracy": acc, "srv_idle": metrics.srv_idle_frac,
+            "dev_idle": metrics.dev_idle_frac,
+            "throughput": metrics.throughput,
+            "profiles": profiles.summary(),
+            "produce_per_round": produce.sum(axis=0).tolist(),
+            "reads_per_round": int(reads.sum()),
+            "memory": mem,
+            "consumed": metrics.dev_consumed.tolist(),
+            "contribution_balance": bal,
+            "steady": steady, "registry": metrics.to_registry().snapshot()}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -232,13 +338,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=8,
                    help="sequences per group per round")
     p.add_argument("--H", type=int, default=None,
-                   help="local iterations per round (default 4)")
+                   help="local iterations per round (pod default 4, sim "
+                        "default 10)")
     p.add_argument("--l-split", type=int, default=0)
     p.add_argument("--lr-d", type=float, default=0.05)
     p.add_argument("--lr-s", type=float, default=0.05)
     p.add_argument("--server-opt", default="sgd", choices=("sgd", "adamw"))
     p.add_argument("--omega", type=int, default=None,
-                   help="activation ring depth ω (default 1)")
+                   help="activation cap ω (pod ring default 1, sim "
+                        "default 8)")
     p.add_argument("--policy", default="counter", choices=("counter", "fifo"),
                    help="Task Scheduler consumption policy (Alg. 3)")
     p.add_argument("--max-delay", type=int, default=16,
@@ -252,13 +360,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--p-drop", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
+    p.add_argument("--devices", type=int, default=8,
+                   help="simulated devices (sim mode)")
+    p.add_argument("--duration", type=float, default=300.0,
+                   help="simulated seconds (sim mode)")
+    p.add_argument("--pool-cap", type=int, default=None,
+                   help="spill budget beyond ω in flow units (sim mode; "
+                        "default ω); the pod path refuses it until A2")
     p.add_argument("--window", type=int, default=2,
                    help="pipelined rounds in flight: 1 = synchronous host "
                         "loop, 2 = the host plans and builds round r+1 "
                         "while the card runs round r (metric values do "
                         "not depend on the window)")
     # later slices of the port: refused with NotImplementedError when set
-    p.add_argument("--pool-cap", type=int, default=0)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--faults", default=None)
     p.add_argument("--fleet-trace", default=None)
@@ -272,7 +386,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> dict:
-    return run_pod(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    return (run_pod if args.mode == "pod" else run_sim)(args)
 
 
 if __name__ == "__main__":

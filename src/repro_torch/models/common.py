@@ -1,5 +1,5 @@
 """Common model building blocks: initializers, norms, RoPE, activations,
-and the two tree helpers the port needs.
+and the tree helpers the port needs.
 
 Params are plain nested dicts and lists of tensors in the JAX layout:
 dense weights are ``(in, out)`` and used as ``x @ W``.  Every initializer
@@ -21,6 +21,12 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_lerp(a, b, alpha: float):
+    """(1 - alpha) * a + alpha * b over trees, in new tensors and in the JAX
+    package's order of operations (the FedAsync update)."""
+    return tree_map(lambda x, y: (1.0 - alpha) * x + alpha * y, a, b)
 
 
 def tree_leaves(tree) -> list:
@@ -64,6 +70,19 @@ def rmsnorm_apply(params: dict, x, eps: float = 1e-6):
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(dim: int, *, device, dtype=torch.float32) -> dict:
+    return {"scale": torch.ones(dim, device=device, dtype=dtype),
+            "bias": torch.zeros(dim, device=device, dtype=dtype)}
+
+
+def layernorm_apply(params: dict, x, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (RoPE)
 # ---------------------------------------------------------------------------
@@ -99,6 +118,10 @@ def gelu(x):
     """``jax.nn.gelu``'s default, the tanh approximation (the exact erf form
     differs from it by up to ~5e-4)."""
     return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def hardswish(x):
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
 
 
 def softcap(logits, cap: float):

@@ -13,6 +13,9 @@ It also holds the pipelined executor to what only the card shows: its
 handles keep their round across in-place updates, window 2 overlaps host
 work with the card's, and a round's dispatch makes no host sync.
 
+It also runs the sim-mode FedOptima learner on the card against the CPU
+(``chip_smoke.sim_card_vs_cpu`` at a tiny size).
+
 The attention rows include head dim 128 with a GQA group of 8 (qwen3-32b)
 and with gemma2-27b's logit cap of 50 and a sliding window that cuts.
 
@@ -430,3 +433,25 @@ def test_cuda_dispatch_makes_no_host_sync():
     for a, b in zip(tree_leaves(host), tree_leaves({k: state[k] for k in
                                                     ("dev", "aux")})):
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_sim_learner_matches_cpu():
+    """``chip_smoke.sim_card_vs_cpu`` (phase 7 (b)) at a tiny size: the
+    VGG-5 FedOptimaLearner through ``simulate_fedoptima`` at 8x8, K=4, 10
+    simulated seconds, from one init on the card and on the CPU (which
+    replays the card's ReLU and pool choices): every count bit-identical,
+    the final params within ``SIM_PARAMS_TOL`` of each leaf's largest
+    |value|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the learner on the card")
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = cs.sim_card_vs_cpu(torch, img=8, K=4, duration=10.0)
+    assert out["counts"]["srv_batches"] > 0
+    assert out["counts"]["aggregations"] > 0
+    assert max(out["gaps"].values()) <= cs.SIM_PARAMS_TOL

@@ -492,7 +492,9 @@ REFUSED = [  # flags, the error, what its message must name
     (["--window", "0"], ValueError, "window must be >= 1"),
     (["--pool-cap", "1"], NotImplementedError, "A2, the tiered activation"),
     (["--ckpt-dir", "ckpt"], NotImplementedError, "A3, checkpoints"),
-    (["--mode", "sim"], NotImplementedError, "A6, the sim-mode learners"),
+    # sim mode runs since A6a; its planes stay refused there too
+    (["--mode", "sim", "--faults", "random"], NotImplementedError,
+     "A7, the fault plane"),
     (["--faults", "random"], NotImplementedError, "A7, the fault plane"),
     (["--trace", "t"], NotImplementedError, "A7, the telemetry plane"),
     (["--fleet-trace", "t"], NotImplementedError, "A7, the fleet plane"),
