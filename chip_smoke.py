@@ -53,7 +53,7 @@ exits non-zero:
    and plans: the kernels launch as reckoned from H, G and the split and
    the plain path never, losses within 1e-3 relative, params within
    ``PARAMS_TOL`` and finite; the second kernel round profiled; then the
-   driver (``repro_torch.launch.train.run_pod``, four rounds of smollm,
+   driver (``repro_torch.launch.train.run_pod``, three rounds of smollm,
    two of mamba2) with the kernels at ``--window 1`` and ``--window 2``
    in turns (1, 2), each run with every kernel's launches counted over the run (rounds x the per-round count)
    and its peak memory, steady tok/s, host seconds inside ``step()`` per
@@ -74,13 +74,13 @@ exits non-zero:
    with both kernel families, at every published width (4 layers, the
    period cut to attention + Mamba/MoE, 16 experts cut to 2, G=1; the
    launches of each family reckoned from its own blocks): the same
-   kernels-vs-plain check and profiled round, and three driver rounds
+   kernels-vs-plain check and profiled round, and two driver rounds
    through the ``RoundExecutor`` at window 2 (steady tok/s, device ms per
    round, peak memory).  The cuts are printed on the path's first line.
    The driver feeds zero frontends, as the JAX driver does, so whisper's
    device loss is exactly 0 on both paths.
 5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
-   four rounds at windows 1 and 2: bit-identical histories and final
+   three rounds at windows 1 and 2: bit-identical histories and final
    params, and a dropped group must have been retired (gathered from the
    live state at a boundary) in both runs.
 6. serving (``SERVE``), run right after each served path's driver: smollm,
@@ -101,7 +101,7 @@ exits non-zero:
    16x16, ω=8, H=10, pool = ω): the flow cap held, accuracy above chance;
    its idle fractions, throughput, accuracy, memory line, balance, wall
    seconds, device and server steps per wall second and peak memory.
-   (b) the VGG-5 learner at 32x32 through ``simulate_fedoptima`` (K=4, 40
+   (b) the VGG-5 learner at 32x32 through ``simulate_fedoptima`` (K=4, 20
    simulated seconds) from one init and the same data on the card
    (profiled: the card's busy share) and on the CPU, which replays the
    card's ReLU masks and max-pool choices (``ReplayChoices``; how many it
@@ -113,6 +113,22 @@ exits non-zero:
    MobileNetV3ish, Transformer-6 and -12), each through the learner for
    a short run (K=4): losses finite, hook counts equal to the simulator's;
    ms per device step, server step and aggregation, and peak memory.
+8. baselines — the six baselines (``core/baselines.py``: classic FL,
+   FedAsync, FedBuff, SplitFed, PiPar, OAFL) and their learners
+   (``FullModelLearner``, ``SplitLearner``), which run no kernel of the
+   five (their counts must stay 0): (a) each with no hooks beside
+   ``simulate_fedoptima`` at ``tests/test_simulation.py``'s costs (K=8,
+   400 simulated seconds): idle fractions, throughput and communication
+   per round, and the orderings of that file and
+   ``tests/test_communication.py`` must hold.  (b) Table 2 in miniature:
+   VGG-5 at 32x32, K=4, 40 simulated seconds, through FedOptima and each
+   baseline with its learner on the card, from one init on the same
+   shards: hook counts equal to the simulator's, losses finite, the
+   held-out accuracy of each.  (c) card against CPU for FedAsync and OAFL
+   (phase 7 (b)'s check, the CPU replaying the card's choices; the card
+   run profiled).  (d) the paper's four models at their published sizes
+   under SplitFed and FedAsync (K=4, 20 simulated seconds): ms per device
+   step, server step and aggregation, and peak memory.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -171,7 +187,7 @@ MAIN_PATHS = {  # arch: its own flags
     "smollm-135m": ["--arch", "smollm-135m", "--l-split", "3"],
     "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "6"],
 }
-DRIVER_ROUNDS = {"smollm-135m": 4, "mamba2-780m": 2}   # per driver run
+DRIVER_ROUNDS = {"smollm-135m": 3, "mamba2-780m": 2}   # per driver run
 # The windows of the driver runs: one turn of each.  The windows'
 # histories are compared, and phase 5 runs both windows again under churn;
 # a timing of one tree against another in paired turns is
@@ -229,7 +245,9 @@ WIDE_NOTES = {
         "both (dispatch and combine at full width, not the choice among "
         "experts); the (mamba, dense) block is held on the CPU only"),
 }
-WIDE_DRIVER_ROUNDS = 3
+# two driver rounds keep the script inside its time; the steady tok/s is
+# then one round's, as mamba2's
+WIDE_DRIVER_ROUNDS = 2
 # Phase 6, serving: arch -> (batch, prompt length, new tokens).  Each is
 # served from its path's trained final state, merged (``merge_params``):
 # smollm and mamba2 whole, whisper whole over its 1500 frames (416 + 32 =
@@ -772,18 +790,19 @@ def phase_ssd_conditioning(torch, ssd_k, ref) -> None:
 # 4. the main paths
 # ---------------------------------------------------------------------------
 
-def profile_round(torch, round_fn, top=12, busy=None, host_ops=True):
+def profile_round(torch, round_fn, top=12, busy=None):
     """One kernel-path round, ``round_fn()``, under torch.profiler: device
     time by kernel and the device's busy share of the round's wall time
-    (the profiler's own overhead is inside that wall time; ``host_ops``
-    False leaves the host's ops unrecorded, which costs far less where
-    they are many and small).  Returns the round's result;
-    ``busy["share"]`` is set to the busy share."""
+    (the profiler's own overhead is inside that wall time).  CUDA activity
+    only: recording the host's ops too lengthened the rounds' wall (smollm
+    read 23.7% busy with them, 39.9% without) and took 41 s to collect
+    after smollm's profiled round, 57 s after mamba2's (9 s and 14 s
+    without; an H100 host).  Returns the round's result; ``busy["share"]``
+    is set to the busy share."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU] * host_ops +
-                 [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = round_fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1162,19 +1181,19 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
 
 def phase_churn(torch, counters) -> None:
     """smollm-135m at full width and full depth (30 layers) under churn
-    (--p-drop 0.3, 4 rounds) at windows 1 and 2: the histories and the
+    (--p-drop 0.3, 3 rounds) at windows 1 and 2: the histories and the
     final params must be bit-identical, and both runs must have retired a
     dropped group."""
     from repro_torch.models.common import tree_leaves
     t0 = time.perf_counter()
     runs = {w: drive(torch, *main_setup("smollm-135m", [
-        "--rounds", "4", "--window", str(w), "--p-drop", "0.3"]), counters,
+        "--rounds", "3", "--window", str(w), "--p-drop", "0.3"]), counters,
         keep_final=True) for w in (1, 2)}
     same_hist = runs[1]["history"] == runs[2]["history"]
     same_params = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(runs[1]["final"]), tree_leaves(runs[2]["final"])))
     retention = {w: runs[w]["executor"]["retention"] for w in (1, 2)}
-    print(f"[churn] smollm-135m full width, 30 layers, --p-drop 0.3, 4 "
+    print(f"[churn] smollm-135m full width, 30 layers, --p-drop 0.3, 3 "
           f"rounds: windows 1 and 2 histories bit-identical {same_hist}, "
           f"final params bit-identical {same_params}; retention {retention},"
           f" window 2 handle_bytes_peak "
@@ -1423,8 +1442,8 @@ def phase_serve(torch, arch, params, counters) -> dict:
 SIM_COSTS = dict(dev_fwd_flops=2e9, dev_bwd_flops=4e9, full_fwd_flops=6e9,
                  srv_flops_per_batch=1.2e10, act_bytes=2e6,
                  dev_model_bytes=1e6, full_model_bytes=4e6, batch_size=32)
-# (b): VGG-5 at 32x32, K=4, 40 simulated seconds, on the card and the CPU
-SIM_CARD_CPU = dict(img=32, K=4, duration=40.0)
+# (b): VGG-5 at 32x32, K=4, 20 simulated seconds, on the card and the CPU
+SIM_CARD_CPU = dict(img=32, K=4, duration=20.0)
 # (b): the card's final params against the CPU's, max |difference| over
 # each leaf's largest |value| on the CPU, with the card's ReLU and pool
 # choices replayed on the CPU (without the replay a near-tie that rounds
@@ -1444,34 +1463,43 @@ SIM_MODELS = {  # name: (module, config, l_split, lr)
 }
 SIM_SAMPLES = 1024
 SIM_MODEL_DURATION = 10.0
+# the baselines that train the whole model on the device (FullModelLearner);
+# SplitFed, PiPar and OAFL train a split one (SplitLearner)
+FULL_MODEL = ("fl", "fedasync", "fedbuff")
 
 
 class TimedHooks:
     """A learner's hooks, each call timed to its end on the card (a sync on
-    either side), its last loss kept: the simulator calls these."""
+    either side) and counted, the step's loss kept where the learner has
+    one (the split learner's device step has none): the simulator calls
+    these."""
 
     def __init__(self, torch, learner):
         self.torch, self.learner = torch, learner
-        self.ms = {"device_iter": [], "server_train": [], "aggregate": []}
+        self.ms = {"device_iter": [], "server_train": [], "aggregate": [],
+                   "sync_aggregate": []}
         self.losses = []
 
-    def _call(self, name, *args):
+    def _call(self, name, *args, loss=None):
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
         getattr(self.learner, name)(*args)
         self.torch.cuda.synchronize()
         self.ms[name].append((time.perf_counter() - t0) * 1e3)
+        if getattr(self.learner, loss or "", None) is not None:
+            self.losses.append(getattr(self.learner, loss))
 
     def device_iter(self, k, send):
-        self._call("device_iter", k, send)
-        self.losses.append(self.learner.dev_loss)
+        self._call("device_iter", k, send, loss="dev_loss")
 
     def server_train(self, k):
-        self._call("server_train", k)
-        self.losses.append(self.learner.srv_loss)
+        self._call("server_train", k, loss="srv_loss")
 
     def aggregate(self, k):
         self._call("aggregate", k)
+
+    def sync_aggregate(self):
+        self._call("sync_aggregate")
 
 
 def _sim_datasets(cfg, K, samples=SIM_SAMPLES, seed=0):
@@ -1496,22 +1524,40 @@ def _sim_datasets(cfg, K, samples=SIM_SAMPLES, seed=0):
 
 
 def sim_learner_run(torch, adapter, datasets, l_split, device, duration,
-                    init=None, hooks=None, lr=0.05):
-    """The learner through ``simulate_fedoptima`` (ω=8, pool 8, H=10, over
-    ``heterogeneous_cluster(K)``): (Metrics, ControlPlane, learner)."""
+                    init=None, hooks=None, lr=0.05, protocol="fedoptima"):
+    """A protocol's learner through its simulator over
+    ``heterogeneous_cluster(K)`` at H=10: ``"fedoptima"``'s through
+    ``simulate_fedoptima`` (ω=8, pool 8), a baseline's (``baselines.
+    REGISTRY``) through its own, with ``FullModelLearner`` or
+    ``SplitLearner``.  ``init``: (the full model's params, aux params),
+    or None to draw them from seed 0.  Returns (Metrics, the ControlPlane
+    or None, learner)."""
+    from repro_torch.core.baselines import REGISTRY
     from repro_torch.core.control_plane import ControlPlane
-    from repro_torch.core.learning import FedOptimaLearner
+    from repro_torch.core.learning import (FedOptimaLearner,
+                                           FullModelLearner, SplitLearner)
     from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
                                              simulate_fedoptima)
     K = len(datasets)
-    learner = FedOptimaLearner(adapter, datasets, l_split, lr_d=lr, lr_s=lr,
-                               device=device, init=init)
-    control = ControlPlane.for_sim(K, 8, pool_cap=8)
-    m = simulate_fedoptima(SimModel(**SIM_COSTS), heterogeneous_cluster(K),
-                           duration=duration, omega=8, H=10, pool_cap=8,
-                           control=control,
+    model, cluster = SimModel(**SIM_COSTS), heterogeneous_cluster(K)
+    if protocol == "fedoptima":
+        learner = FedOptimaLearner(
+            adapter, datasets, l_split, lr_d=lr, lr_s=lr, device=device,
+            init=None if init is None else
+            (*adapter.split(init[0], l_split), init[1]))
+        control = ControlPlane.for_sim(K, 8, pool_cap=8)
+        m = simulate_fedoptima(model, cluster, duration=duration, omega=8,
+                               H=10, pool_cap=8, control=control,
+                               hooks=learner if hooks is None else
+                               hooks(learner))
+        return m, control, learner
+    kw = dict(lr=lr, device=device, init=None if init is None else init[0])
+    learner = FullModelLearner(adapter, datasets, **kw) \
+        if protocol in FULL_MODEL else \
+        SplitLearner(adapter, datasets, l_split, **kw)
+    m = REGISTRY[protocol](model, cluster, duration=duration, H=10,
                            hooks=learner if hooks is None else hooks(learner))
-    return m, control, learner
+    return m, None, learner
 
 
 def _sim_counts(m, control, learner) -> dict:
@@ -1520,10 +1566,13 @@ def _sim_counts(m, control, learner) -> dict:
     out = {}
     for f in dataclasses.fields(m):
         v = getattr(m, f.name)
-        out[f.name] = v.summary() if f.name == "profiles" else \
-            v.tolist() if isinstance(v, np.ndarray) else v
-    out.update(steady=m.steady_summary(), balance=m.contribution_balance(),
-               memory=control.memory_summary(),
+        out[f.name] = v.summary() if f.name == "profiles" and v is not None \
+            else v.tolist() if isinstance(v, np.ndarray) else v
+    out.update(steady=m.steady_summary(), balance=m.contribution_balance())
+    if control is None:     # a baseline
+        out["hooks"] = (learner.dev_steps, learner.versions, learner.version)
+        return out
+    out.update(memory=control.memory_summary(),
                versions=control.versions.tolist(),
                control=(control.version, control.n_accepted,
                         control.n_rejected),
@@ -1533,9 +1582,26 @@ def _sim_counts(m, control, learner) -> dict:
     return out
 
 
-def _check_hook_counts(name, m, control, learner) -> None:
-    """The learner trained what the simulator scheduled."""
-    got = (learner.dev_steps * SIM_COSTS["batch_size"], learner.srv_steps,
+def _check_hook_counts(name, m, control, learner, th=None,
+                       protocol="fedoptima") -> None:
+    """The learner trained what the simulator scheduled.  A baseline's
+    counts are its hooks' calls (``th``, a ``TimedHooks``): one device
+    step a batch, one server step a batch the server consumed, one
+    ``aggregate`` per contribution FedAsync/FedBuff consumed, and one
+    (``sync_``)``aggregate`` per aggregation otherwise."""
+    B = SIM_COSTS["batch_size"]
+    if control is None:
+        n = {k: len(v) for k, v in th.ms.items()}
+        got = (learner.dev_steps * B, n["device_iter"] * B,
+               n["server_train"], n["aggregate"] + n["sync_aggregate"])
+        want = (m.dev_samples, m.dev_samples, m.srv_batches,
+                int(m.dev_consumed.sum())
+                if protocol in ("fedasync", "fedbuff") else m.aggregations)
+        if got != want:
+            raise AssertionError(f"{name}: hook calls {got} != the "
+                                 f"simulator's {want}")
+        return
+    got = (learner.dev_steps * B, learner.srv_steps,
            learner.agg.n_accepted + learner.agg.n_rejected,
            sum(learner.consumed.values()))
     want = (m.dev_samples, m.srv_batches, control.n_accepted,
@@ -1616,36 +1682,48 @@ class ReplayChoices:
             self._swap(*old)
 
 
-def sim_card_vs_cpu(torch, img, K, duration, profile=False) -> dict:
-    """(b): the same VGG-5 FedOptimaLearner through ``simulate_fedoptima``
+def _final_params(learner) -> dict:
+    """The learner's global trees, by name."""
+    if hasattr(learner, "agg"):             # FedOptima
+        return {"agg.theta_d": learner.agg.theta_d,
+                "agg.theta_aux": learner.agg.theta_aux, "srv": learner.srv}
+    if hasattr(learner, "global_params"):   # full model
+        return {"global": learner.global_params}
+    return {"g_dev": learner.g_dev, "g_srv": learner.g_srv}
+
+
+def sim_card_vs_cpu(torch, img, K, duration, profile=False,
+                    protocol="fedoptima") -> dict:
+    """(b): the same VGG-5 learner of ``protocol`` through its simulator
     from one init (drawn on the CPU from seed 0) and the same data, once on
     the card and once on the CPU, which replays the card run's ReLU masks
     and pool choices (``ReplayChoices``).  Every count must be
-    bit-identical, and the final aggregated device params, aux and server
-    params must agree within ``SIM_PARAMS_TOL`` of each leaf's largest
-    |value|.  Returns the counts, the gaps, the choices replayed and the
-    card's busy share (with ``profile``, from the profiled card run)."""
+    bit-identical, and the final global params (FedOptima's aggregated
+    device params, aux and server params) must agree within
+    ``SIM_PARAMS_TOL`` of each leaf's largest |value|.  Returns the
+    counts, the gaps, the choices replayed and the card's busy share (with
+    ``profile``, from the profiled card run)."""
     from repro_torch.core.learning import ModelAdapter
     from repro_torch.models import cnn
     from repro_torch.models.common import tree_leaves, tree_map
     cfg = cnn.vgg5_config(img_size=img)
     adapter = ModelAdapter(cnn, cfg)
     gen = torch.Generator().manual_seed(0)
-    dev0, srv = adapter.split(adapter.init(gen), 1)
+    full = adapter.init(gen)
     aux0, _ = adapter.make_aux(gen, 1)
     replay = ReplayChoices(torch)
     runs, busy, seconds = {}, {}, {}
     for device in ("cuda", "cpu"):
-        init = tree_map(lambda t: t.to(device), (dev0, srv, aux0))
+        init = tree_map(lambda t: t.to(device), (full, aux0))
 
         def run():
             return replay.run(
                 "record" if device == "cuda" else "replay",
                 lambda: sim_learner_run(torch, adapter, _sim_datasets(cfg, K),
-                                        1, device, duration, init=init))
+                                        1, device, duration, init=init,
+                                        protocol=protocol))
         if device == "cuda" and profile:
-            runs[device] = profile_round(torch, run, top=6, busy=busy,
-                                         host_ops=False)
+            runs[device] = profile_round(torch, run, top=6, busy=busy)
         else:
             t0 = time.perf_counter()
             runs[device] = run()
@@ -1654,23 +1732,75 @@ def sim_card_vs_cpu(torch, img, K, duration, profile=False) -> dict:
     if counts["cuda"] != counts["cpu"]:
         diff = [k for k in counts["cpu"] if counts["cuda"][k] !=
                 counts["cpu"][k]]
-        raise AssertionError(f"sim card vs CPU: counts differ in {diff}")
+        raise AssertionError(f"{protocol} card vs CPU: counts differ in "
+                             f"{diff}")
     if replay.queue:
-        raise AssertionError(f"sim card vs CPU: {len(replay.queue)} of the "
-                             "card's choices were not replayed")
-    a, b = runs["cuda"][2], runs["cpu"][2]
-    gaps = {tag: max(_rel_gap(x, y) for x, y in zip(tree_leaves(p),
-                                                    tree_leaves(q)))
-            for tag, p, q in (("agg.theta_d", a.agg.theta_d, b.agg.theta_d),
-                              ("agg.theta_aux", a.agg.theta_aux,
-                               b.agg.theta_aux),
-                              ("srv", a.srv, b.srv))}
+        raise AssertionError(f"{protocol} card vs CPU: {len(replay.queue)} "
+                             "of the card's choices were not replayed")
+    a, b = (_final_params(runs[d][2]) for d in ("cuda", "cpu"))
+    gaps = {tag: max(_rel_gap(x, y) for x, y in zip(tree_leaves(a[tag]),
+                                                    tree_leaves(b[tag])))
+            for tag in a}
     if not max(gaps.values()) <= SIM_PARAMS_TOL:
-        raise AssertionError(f"sim card vs CPU: params gaps {gaps} past "
-                             f"{SIM_PARAMS_TOL} of the leaf's max |value|")
+        raise AssertionError(f"{protocol} card vs CPU: params gaps {gaps} "
+                             f"past {SIM_PARAMS_TOL} of the leaf's max "
+                             "|value|")
     return {"counts": counts["cuda"], "gaps": gaps,
             "otherwise": (replay.otherwise, replay.total),
             "busy": busy.get("share"), "cpu_s": seconds.get("cpu")}
+
+
+def paper_models(torch, protocol, duration, tag) -> dict:
+    """The paper's four models at their published sizes (``SIM_MODELS``)
+    through ``protocol``'s learner (K=4, ``duration`` simulated seconds),
+    every hook timed (``TimedHooks``): losses finite, hook counts equal to
+    the simulator's; ms per device step, server step and aggregation, and
+    the peak memory, printed under ``tag``."""
+    import math
+    from repro_torch.core.learning import ModelAdapter
+    from repro_torch.models import cnn, text_classifier
+    models = {}
+    for name, (mod, make, l_split, lr) in SIM_MODELS.items():
+        module = {"cnn": cnn, "text_classifier": text_classifier}[mod]
+        cfg = getattr(module, make)()
+        datasets = _sim_datasets(cfg, 4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = {}
+
+        def hooks(learner):
+            timed["hooks"] = TimedHooks(torch, learner)
+            return timed["hooks"]
+        m, control, learner = sim_learner_run(
+            torch, ModelAdapter(module, cfg), datasets, l_split, "cuda",
+            duration, hooks=hooks, lr=lr, protocol=protocol)
+        th = timed["hooks"]
+        _check_hook_counts(f"{protocol} {name}", m, control, learner, th,
+                           protocol)
+        if not bool(torch.isfinite(torch.stack(th.losses)).all()):
+            raise AssertionError(f"{protocol} {name}: a loss is not finite")
+        n = {k: len(v) for k, v in th.ms.items()}
+        med = {k: statistics.median(v) for k, v in th.ms.items() if v}
+        mean = {k: statistics.fmean(v) for k, v in th.ms.items() if v}
+        agg = "sync_aggregate" if n["sync_aggregate"] else "aggregate"
+        last = {side: round(getattr(learner, attr).item(), 4)
+                for side, attr in (("device", "dev_loss"),
+                                   ("server", "srv_loss"))
+                if getattr(learner, attr, None) is not None}
+        models[name] = {"ms_median": med, "ms_mean": mean, "calls": n,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"{tag} {name} ({_sim_describe(cfg)}, l_split {l_split}, "
+              f"lr {lr}, K=4, {duration} s simulated): "
+              f"{n['device_iter']} device / {n['server_train']} server "
+              f"steps / {n['aggregate'] + n['sync_aggregate']} aggregations,"
+              f" counts equal to the Metrics', losses finite (last {last}) "
+              f"| ms per device step median {med['device_iter']:.3f} mean "
+              f"{mean['device_iter']:.3f}, per server step median "
+              f"{med.get('server_train', math.nan):.3f} mean "
+              f"{mean.get('server_train', math.nan):.3f}, per aggregation "
+              f"median {med.get(agg, math.nan):.3f} | peak memory "
+              f"{models[name]['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    return models
 
 
 def phase_sim(torch, counters) -> dict:
@@ -1679,9 +1809,7 @@ def phase_sim(torch, counters) -> dict:
     models at their published sizes through the learner.  No kernel of
     the five runs on this path: their counts must stay 0."""
     import math
-    from repro_torch.core.learning import ModelAdapter
     from repro_torch.launch import train
-    from repro_torch.models import cnn, text_classifier
     t0 = time.perf_counter()
     for c in counters:
         c.reset_launches()
@@ -1730,50 +1858,196 @@ def phase_sim(torch, counters) -> dict:
           f"run; the CPU run {b['cpu_s']:.1f} s on {torch.get_num_threads()}"
           f" threads | {time.perf_counter() - t1:.1f} s", flush=True)
     # (c) the paper's models at their published sizes
-    models = {}
-    for name, (mod, make, l_split, lr) in SIM_MODELS.items():
-        module = {"cnn": cnn, "text_classifier": text_classifier}[mod]
-        cfg = getattr(module, make)()
-        datasets = _sim_datasets(cfg, 4)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        timed = {}
-
-        def hooks(learner):
-            timed["hooks"] = TimedHooks(torch, learner)
-            return timed["hooks"]
-        m, control, learner = sim_learner_run(
-            torch, ModelAdapter(module, cfg), datasets, l_split, "cuda",
-            SIM_MODEL_DURATION, hooks=hooks, lr=lr)
-        th = timed["hooks"]
-        finite = bool(torch.isfinite(torch.stack(th.losses)).all())
-        _check_hook_counts(name, m, control, learner)
-        if not finite:
-            raise AssertionError(f"sim {name}: a loss is not finite")
-        med = {k: statistics.median(v) for k, v in th.ms.items() if v}
-        mean = {k: statistics.fmean(v) for k, v in th.ms.items() if v}
-        models[name] = {"ms_median": med, "ms_mean": mean,
-                        "steps": (learner.dev_steps, learner.srv_steps),
-                        "peak_bytes": torch.cuda.max_memory_allocated()}
-        print(f"[sim] (c) {name} ({_sim_describe(cfg)}, l_split {l_split}, "
-              f"lr {lr}, K=4, {SIM_MODEL_DURATION} s simulated): "
-              f"{learner.dev_steps} "
-              f"device / {learner.srv_steps} server steps / "
-              f"{len(th.ms['aggregate'])} aggregations, counts equal to the "
-              f"Metrics', losses finite (last device "
-              f"{learner.dev_loss.item():.4f}, server "
-              f"{learner.srv_loss.item():.4f}) | ms per device step median "
-              f"{med['device_iter']:.3f} mean {mean['device_iter']:.3f}, per "
-              f"server step median {med['server_train']:.3f} mean "
-              f"{mean['server_train']:.3f}, per aggregation median "
-              f"{med.get('aggregate', math.nan):.3f} | peak memory "
-              f"{models[name]['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    models = paper_models(torch, "fedoptima", SIM_MODEL_DURATION, "[sim] (c)")
     launches = {k: v for c in counters for k, v in c.launches.items()}
     if any(launches.values()):
         raise AssertionError(f"sim: a kernel of the five ran: {launches}")
     print(f"[sim] kernel launches over the phase: {launches} | phase "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
     return {"run_sim": out, "card_vs_cpu": b, "models": models}
+
+# ---------------------------------------------------------------------------
+# 8. the baselines
+# ---------------------------------------------------------------------------
+
+# (a): tests/test_simulation.py's costs and fleet (K=8, 400 simulated s);
+# tests/test_communication.py's run takes activations of 2 MB
+BASE_COSTS = dict(dev_fwd_flops=1e9, dev_bwd_flops=2e9, full_fwd_flops=5e9,
+                  srv_flops_per_batch=8e9, act_bytes=1e6,
+                  dev_model_bytes=4e6, full_model_bytes=2e7, batch_size=32)
+BASE_K, BASE_DURATION = 8, 400.0
+BASE_TOTAL = 8 * 4096          # the nominal dataset of comm_per_round
+# (b): Table 2 in miniature: VGG-5 32x32, K=4, every protocol's learner
+# from one init on the same data, accuracy on held-out samples drawn with
+# them (the same class prototypes)
+BASE_TABLE2 = dict(img=32, K=4, duration=40.0, held_out=1024)
+# (c): card against CPU for one full-model and one split protocol, at
+# phase 7 (b)'s size
+BASE_CARD_CPU = ("fedasync", "oafl")
+# (d): the paper's models under one split and one full-model protocol;
+# SplitFed's slowest device closes its first round at ~15 s
+BASE_MODEL_PROTOCOLS = ("splitfed", "fedasync")
+BASE_MODEL_DURATION = 20.0
+
+
+def baseline_orderings() -> dict:
+    """(a): the six baselines with no hooks beside ``simulate_fedoptima``;
+    the orderings of ``tests/test_simulation.py`` and
+    ``tests/test_communication.py`` must hold.  Returns the Metrics."""
+    from repro_torch.core.baselines import REGISTRY, simulate_oafl
+    from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
+                                             simulate_fedoptima)
+    model, cluster = SimModel(**BASE_COSTS), heterogeneous_cluster(BASE_K)
+    res = {"fedoptima": simulate_fedoptima(model, cluster,
+                                           duration=BASE_DURATION)}
+    for name, fn in REGISTRY.items():
+        res[name] = fn(model, cluster, duration=BASE_DURATION)
+    for name, m in res.items():
+        print(f"[baselines] (a) {name}: dev idle {m.dev_idle_frac:.4f} srv "
+              f"idle {m.srv_idle_frac:.4f} throughput {m.throughput:.2f} "
+              f"samples/s comm per round "
+              f"{m.comm_per_round(BASE_TOTAL) / 1e6:.2f} MB | aggregations "
+              f"{m.aggregations} rounds {m.rounds} srv_batches "
+              f"{m.srv_batches}", flush=True)
+    big = SimModel(**dict(BASE_COSTS, act_bytes=2e6))
+    fo2 = simulate_fedoptima(big, cluster, duration=BASE_DURATION, omega=8)
+    oafl2 = simulate_oafl(big, cluster, duration=BASE_DURATION)
+    fo = res["fedoptima"]
+    checks = {
+        "device idle: fedoptima <= splitfed, pipar, oafl": all(
+            fo.dev_idle_frac <= res[b].dev_idle_frac + 1e-6
+            for b in ("splitfed", "pipar", "oafl")),
+        "server idle: fedoptima lowest": all(
+            fo.srv_idle_frac <= m.srv_idle_frac + 1e-6
+            for m in res.values()),
+        "throughput: fedoptima highest": all(
+            fo.throughput >= m.throughput - 1e-6 for m in res.values()),
+        "device idle: fedasync < fl":
+            res["fedasync"].dev_idle_frac < res["fl"].dev_idle_frac,
+        "throughput: pipar >= splitfed":
+            res["pipar"].throughput >= res["splitfed"].throughput,
+        "comm per round: fedoptima < oafl":
+            fo.comm_per_round(BASE_TOTAL) < res["oafl"].comm_per_round(
+                BASE_TOTAL),
+        "comm per round at 2 MB acts: fedoptima < oafl":
+            fo2.comm_per_round(BASE_TOTAL) < oafl2.comm_per_round(
+                BASE_TOTAL),
+        "downlink per sample at 2 MB acts: fedoptima < 0.5 oafl":
+            fo2.bytes_down / max(fo2.dev_samples, 1) <
+            0.5 * oafl2.bytes_down / max(oafl2.dev_samples, 1),
+        "uploads per device iteration at 2 MB acts <= 1":
+            fo2.bytes_up / big.act_bytes <=
+            fo2.dev_samples / big.batch_size + 1,
+    }
+    failed = [c for c, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"baselines: orderings broken: {failed}")
+    print(f"[baselines] (a) orderings held: {list(checks)}", flush=True)
+    return res
+
+
+def table2_miniature(torch) -> dict:
+    """(b): VGG-5 through FedOptima and each baseline with its learner on
+    the card, from one init (drawn on the CPU from seed 0) and the same
+    shards: hook counts equal to the simulator's, losses finite; the
+    held-out accuracy, steps and wall seconds of each."""
+    from repro_torch.core.baselines import REGISTRY
+    from repro_torch.core.learning import ModelAdapter
+    from repro_torch.data.partitioner import dirichlet_partition
+    from repro_torch.data.pipeline import DeviceDataset
+    from repro_torch.data.synthetic import classification_dataset
+    from repro_torch.models import cnn
+    from repro_torch.models.common import tree_map
+    img, K, duration, held = (BASE_TABLE2[k] for k in
+                              ("img", "K", "duration", "held_out"))
+    cfg = cnn.vgg5_config(img_size=img)
+    adapter = ModelAdapter(cnn, cfg)
+    gen = torch.Generator().manual_seed(0)
+    full = adapter.init(gen)
+    aux0, _ = adapter.make_aux(gen, 1)
+    init = tree_map(lambda t: t.to("cuda"), (full, aux0))
+    data = classification_dataset(SIM_SAMPLES + held, cfg.n_classes,
+                                  img_size=img, seed=0)
+    x, y = data.x[:SIM_SAMPLES], data.y[:SIM_SAMPLES]
+    parts = dirichlet_partition(y, K, alpha=0.5, seed=0)
+    out = {}
+    for protocol in ("fedoptima", *REGISTRY):
+        datasets = [DeviceDataset(x[ix], y[ix], batch=32, seed=g)
+                    for g, ix in enumerate(parts)]
+        timed = {}
+
+        def hooks(learner):
+            timed["hooks"] = TimedHooks(torch, learner)
+            return timed["hooks"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, control, learner = sim_learner_run(
+            torch, adapter, datasets, 1, "cuda", duration, init=init,
+            hooks=hooks, protocol=protocol)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        th = timed["hooks"]
+        _check_hook_counts(f"table 2 {protocol}", m, control, learner, th,
+                           protocol)
+        if not bool(torch.isfinite(torch.stack(th.losses)).all()):
+            raise AssertionError(f"table 2 {protocol}: a loss is not finite")
+        acc = learner.eval_accuracy(data.x[SIM_SAMPLES:],
+                                    data.y[SIM_SAMPLES:])
+        n = {k: len(v) for k, v in th.ms.items()}
+        out[protocol] = {"accuracy": acc, "calls": n, "wall_s": wall}
+        print(f"[baselines] (b) {protocol}: VGG-5 {img}x{img}, K={K}, "
+              f"{duration} s simulated: held-out accuracy {acc:.4f} on "
+              f"{held} samples | {n['device_iter']} device / "
+              f"{n['server_train']} server steps / "
+              f"{n['aggregate'] + n['sync_aggregate']} aggregations, counts "
+              f"equal to the Metrics', losses finite | dev idle "
+              f"{m.dev_idle_frac:.4f} srv idle {m.srv_idle_frac:.4f} | wall "
+              f"{wall:.2f} s", flush=True)
+    return out
+
+
+def phase_baselines(torch, counters) -> dict:
+    """(a) the six baselines' event metrics and orderings; (b) Table 2 in
+    miniature on the card; (c) card against CPU for ``BASE_CARD_CPU``
+    (``sim_card_vs_cpu``); (d) the paper's four models under
+    ``BASE_MODEL_PROTOCOLS``.  No kernel of the five runs on this path:
+    their counts must stay 0."""
+    t0 = time.perf_counter()
+    for c in counters:
+        c.reset_launches()
+    baseline_orderings()
+    table2 = table2_miniature(torch)
+    card_cpu = {}
+    for protocol in BASE_CARD_CPU:
+        t1 = time.perf_counter()
+        b = sim_card_vs_cpu(torch, **SIM_CARD_CPU, protocol=protocol,
+                            profile=True)
+        c = b["counts"]
+        card_cpu[protocol] = b
+        print(f"[baselines] (c) {protocol}: VGG-5 {SIM_CARD_CPU['img']}x"
+              f"{SIM_CARD_CPU['img']}, K={SIM_CARD_CPU['K']}, "
+              f"{SIM_CARD_CPU['duration']} s simulated, card vs CPU from "
+              f"one init, the CPU replaying the card's ReLU and pool choices "
+              f"({b['otherwise'][0]} of {b['otherwise'][1]} chose "
+              f"otherwise): every Metrics field and the learner's counts "
+              f"bit-identical (dev_samples {c['dev_samples']}, srv_batches "
+              f"{c['srv_batches']}, aggregations {c['aggregations']}, "
+              f"version {c['hooks'][2]}); final params, max|card - cpu| / "
+              f"max|cpu| per leaf, worst: "
+              f"{ {k: f'{v:.3e}' for k, v in b['gaps'].items()} } <= "
+              f"{SIM_PARAMS_TOL}; card busy {b['busy']:.1%} of the profiled "
+              f"run; the CPU run {b['cpu_s']:.1f} s | "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    models = {p: paper_models(torch, p, BASE_MODEL_DURATION,
+                              f"[baselines] (d) {p}")
+              for p in BASE_MODEL_PROTOCOLS}
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    if any(launches.values()):
+        raise AssertionError(f"baselines: a kernel of the five ran: "
+                             f"{launches}")
+    print(f"[baselines] kernel launches over the phase: {launches} | phase "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    return {"table2": table2, "card_vs_cpu": card_cpu, "models": models}
 
 
 def _sim_describe(cfg) -> str:
@@ -1826,6 +2100,9 @@ def main() -> int:
     t1 = time.perf_counter()
     phase_sim(torch, (fa, ssd_k))
     print(f"[time] sim: {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    phase_baselines(torch, (fa, ssd_k))
+    print(f"[time] baselines: {time.perf_counter() - t1:.0f} s", flush=True)
     served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
               if run["serve"] is not None}
     kernels = []

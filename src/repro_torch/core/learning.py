@@ -11,11 +11,13 @@ A ``ModelAdapter`` abstracts over layer-list models (``cnn.py``,
 signatures, so one adapter class serves VGG-5, MobileNetV3ish and
 Transformer-6/12.
 
-A copy of the JAX package's ``core/learning.py`` for FedOptima's learner;
-``FullModelLearner`` and ``SplitLearner`` come with the baselines (ROADMAP
-item A6b).  The steps run eagerly with autograd and update the params in
-place (the reference's jitted steps return new arrays), so every hand-over
-between devices, the aggregator and the server is a copy.
+A copy of the JAX package's ``core/learning.py``: FedOptima's learner,
+driven by ``simulation.simulate_fedoptima``, and the baselines' two
+learners, driven by ``baselines.py`` (``FullModelLearner`` for classic FL,
+FedAsync and FedBuff; ``SplitLearner`` for SplitFed, PiPar and OAFL).  The
+steps run eagerly with autograd and update the params in place (the
+reference's jitted steps return new arrays), so every hand-over between
+devices, the global model, the aggregator and the server is a copy.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Any
 import torch
 
 from repro_torch.data.pipeline import DeviceDataset
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import tree_leaves, tree_lerp, tree_map
 
 from .aggregator import AsyncAggregator
 from .staging import to_device
@@ -49,6 +51,9 @@ class ModelAdapter:
         spec (layer kinds, pooling) is static metadata."""
         return self.module.make_aux_params(gen, self.cfg, l, variant)
 
+    def full_loss(self, params, x, y):
+        return self.module.loss_fn(params, self.cfg, x, y)
+
     def accuracy(self, params, x, y):
         return float(self.module.accuracy(params, self.cfg, x, y))
 
@@ -62,6 +67,25 @@ class ModelAdapter:
 
     def server_loss(self, srv, acts, y, l):
         return self.module.server_forward_loss(srv, self.cfg, acts, y, l)
+
+
+def _exact_matmuls():
+    """TF32 off for matmuls and cuDNN's convolutions, as the pod step does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _to(device, x, y):
+    """A numpy batch as tensors on ``device`` (tokens and labels int64)."""
+    x = to_device(x, device, None if x.dtype.kind == "f" else torch.int64)
+    return x, to_device(y, device, torch.int64)
+
+
+def _mean(trees):
+    """The elementwise mean of same-shaped trees, summed in list order as
+    the reference's ``sum(xs) / K``."""
+    K = len(trees)
+    return tree_map(lambda *xs: sum(xs) / K, *trees)
 
 
 def _copy(tree):
@@ -112,8 +136,7 @@ class FedOptimaLearner:
                  l_split: int, *, lr_d=0.05, lr_s=0.05, max_delay=16,
                  aux_variant="default", seed=0, max_queue=64,
                  device="cuda", init=None):
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        _exact_matmuls()
         self.a = adapter
         self.l = l_split
         self.lr_d, self.lr_s = lr_d, lr_s
@@ -143,12 +166,6 @@ class FedOptimaLearner:
         # a sync per step)
         self.dev_loss = self.srv_loss = None
 
-    def _batch(self, k: int):
-        x, y = self.datasets[k].next_batch()
-        x = to_device(x, self.device, None if x.dtype.kind == "f"
-                      else torch.int64)
-        return x, to_device(y, self.device, torch.int64)
-
     def _dev_step(self, k: int, x, y):
         dev, dlive = _grad_view(self.dev[k])
         aux, alive = _grad_view(self.aux[k])
@@ -168,7 +185,7 @@ class FedOptimaLearner:
 
     # --- hooks ---
     def device_iter(self, k: int, send: bool):
-        x, y = self._batch(k)
+        x, y = _to(self.device, *self.datasets[k].next_batch())
         acts, self.dev_loss = self._dev_step(k, x, y)
         self.dev_steps += 1
         if send:
@@ -192,8 +209,171 @@ class FedOptimaLearner:
     # --- evaluation: merged global model ---
     def eval_accuracy(self, x, y) -> float:
         params = list(self.agg.theta_d) + list(self.srv)
-        x = to_device(x, self.device, None if x.dtype.kind == "f"
-                      else torch.int64)
         with torch.no_grad():
-            return self.a.accuracy(params, x, to_device(y, self.device,
-                                                        torch.int64))
+            return self.a.accuracy(params, *_to(self.device, x, y))
+
+
+# ---------------------------------------------------------------------------
+# Full-model learner (classic FL / FedAsync / FedBuff)
+# ---------------------------------------------------------------------------
+
+class FullModelLearner:
+    """One global model and K device copies of the whole model.  Each device
+    iteration is one SGD step of the full loss on the device's copy;
+    ``aggregate(k)`` is FedAsync's (α = 1/(staleness + 1), skipped past
+    ``max_delay``), ``sync_aggregate`` FedAvg's mean; both hand the global
+    model back to the device(s).
+
+    The params live on ``device`` (default the card) and are drawn from a
+    ``torch.Generator`` seeded with ``seed``, or, with ``init``, start from
+    the given full-model params (e.g. the JAX learner's, carried across by
+    ``convert.state_from_numpy``), which are copied.  TF32 is off."""
+
+    def __init__(self, adapter: ModelAdapter, datasets: list[DeviceDataset], *,
+                 lr=0.05, max_delay=16, seed=0, device="cuda", init=None):
+        _exact_matmuls()
+        self.a = adapter
+        self.datasets = datasets
+        self.device = torch.device(device)
+        K = len(datasets)
+        if init is None:
+            init = adapter.init(
+                torch.Generator(device=self.device).manual_seed(seed))
+        self.global_params = _copy(init)
+        self.dev = [_copy(init) for _ in range(K)]
+        self.versions = [0] * K
+        self.version = 0
+        self.max_delay = max_delay
+        self.lr = lr
+        self.dev_steps = 0
+        self.dev_loss = None      # the last step's loss, on the card
+
+    def device_iter(self, k: int, _send: bool):
+        x, y = _to(self.device, *self.datasets[k].next_batch())
+        params, live = _grad_view(self.dev[k])
+        loss = self.a.full_loss(params, x, y)
+        _sgd(tree_leaves(self.dev[k]), torch.autograd.grad(loss, live),
+             self.lr)
+        self.dev_loss = loss.detach()
+        self.dev_steps += 1
+
+    def aggregate(self, k: int):
+        staleness = self.version - self.versions[k]
+        if staleness <= self.max_delay:
+            alpha = 1.0 / (staleness + 1.0)
+            self.global_params = tree_lerp(self.global_params, self.dev[k],
+                                           alpha)
+            self.version += 1
+        self.dev[k] = _copy(self.global_params)
+        self.versions[k] = self.version
+
+    def sync_aggregate(self):
+        self.global_params = _mean(self.dev)
+        self.version += 1
+        for k in range(len(self.dev)):
+            self.dev[k] = _copy(self.global_params)
+            self.versions[k] = self.version
+
+    def server_train(self, k: int):
+        pass
+
+    def eval_accuracy(self, x, y) -> float:
+        with torch.no_grad():
+            return self.a.accuracy(self.global_params,
+                                   *_to(self.device, x, y))
+
+
+# ---------------------------------------------------------------------------
+# Split learner (SplitFed / PiPar / OAFL)
+# ---------------------------------------------------------------------------
+
+class SplitLearner:
+    """Split training with gradient return.  The simulator calls
+    server_train(k) (server fwd/bwd on device k's activations, producing
+    ∂loss/∂acts) *before* device_iter(k) (device-side VJP + SGD), matching
+    the wire protocol.  SplitFed keeps one server-side model per device;
+    sync_aggregate averages device and server halves each round; OAFL
+    aggregates asynchronously (α-weighted) per arriving device.
+
+    Params, ``device``, ``seed`` and ``init`` (the full model's params,
+    split at ``l_split``) as ``FullModelLearner``'s.  The pending gradient
+    stays a tensor on the card (the reference copies it to the host)."""
+
+    def __init__(self, adapter: ModelAdapter, datasets: list[DeviceDataset],
+                 l_split: int, *, lr=0.05, max_delay=16, seed=0,
+                 device="cuda", init=None):
+        _exact_matmuls()
+        self.a = adapter
+        self.l = l_split
+        self.lr = lr
+        self.datasets = datasets
+        self.device = torch.device(device)
+        K = len(datasets)
+        if init is None:
+            init = adapter.init(
+                torch.Generator(device=self.device).manual_seed(seed))
+        dev0, srv0 = adapter.split(init, l_split)
+        self.dev = [_copy(dev0) for _ in range(K)]
+        self.srv = [_copy(srv0) for _ in range(K)]
+        self.g_dev = _copy(dev0)
+        self.g_srv = _copy(srv0)
+        self.versions = [0] * K
+        self.version = 0
+        self.max_delay = max_delay
+        self._pending: dict[int, tuple] = {}
+        self.dev_steps = 0
+        self.srv_loss = None      # the last server step's loss, on the card
+
+    def server_train(self, k: int):
+        x, y = _to(self.device, *self.datasets[k].next_batch())
+        with torch.no_grad():
+            acts = self.a.device_forward(self.dev[k], x, self.l)
+        srv, live = _grad_view(self.srv[k])
+        acts.requires_grad_()
+        loss = self.a.server_loss(srv, acts, y, self.l)
+        *g_srv, g_acts = torch.autograd.grad(loss, live + [acts],
+                                             allow_unused=True)
+        if g_acts is None:
+            # the server loss stops the gradient at the activations, as the
+            # reference's does, so ∂loss/∂acts is zero there too and the
+            # device halves never move (ROADMAP §C)
+            g_acts = torch.zeros_like(acts)
+        _sgd(tree_leaves(self.srv[k]), g_srv, self.lr)
+        self.srv_loss = loss.detach()
+        self._pending[k] = (x, g_acts)
+
+    def device_iter(self, k: int, _send: bool):
+        if k not in self._pending:
+            return
+        x, g_acts = self._pending.pop(k)
+        dev, live = _grad_view(self.dev[k])
+        acts = self.a.device_forward(dev, x, self.l)
+        _sgd(tree_leaves(self.dev[k]),
+             torch.autograd.grad(acts, live, grad_outputs=g_acts), self.lr)
+        self.dev_steps += 1
+
+    def sync_aggregate(self):
+        K = len(self.dev)
+        self.g_dev = _mean(self.dev)
+        self.g_srv = _mean(self.srv)
+        self.version += 1
+        for k in range(K):
+            self.dev[k] = _copy(self.g_dev)
+            self.srv[k] = _copy(self.g_srv)
+            self.versions[k] = self.version
+
+    def aggregate(self, k: int):  # OAFL: async α-weighted
+        staleness = self.version - self.versions[k]
+        if staleness <= self.max_delay:
+            alpha = 1.0 / (staleness + 1.0)
+            self.g_dev = tree_lerp(self.g_dev, self.dev[k], alpha)
+            self.g_srv = tree_lerp(self.g_srv, self.srv[k], alpha)
+            self.version += 1
+        self.dev[k] = _copy(self.g_dev)
+        self.srv[k] = _copy(self.g_srv)
+        self.versions[k] = self.version
+
+    def eval_accuracy(self, x, y) -> float:
+        params = list(self.g_dev) + list(self.g_srv)
+        with torch.no_grad():
+            return self.a.accuracy(params, *_to(self.device, x, y))

@@ -18,7 +18,8 @@ order, so one event more or fewer would reorder every later tie), and the
 same metrics, bit for bit.  Churn, fleet traces, participant selection,
 the elastic registry, fault injection and the periodic metrics dumps are
 refused with the ROADMAP item that brings them (A7); the sanitizer and
-trace emits come with them.  The baselines are item A6b.
+trace emits come with them.  The baselines (``core/baselines.py``) run
+on the same engine and ``Metrics``.
 """
 from __future__ import annotations
 
@@ -45,6 +46,18 @@ LATER = {
     "fault_gate": (None, "A7, the fault plane"),
     "metrics_every": (0.0, "A7, the metrics dumps"),
 }
+
+
+def refuse_later(table: dict, call: str, **planes) -> None:
+    """Raise ``NotImplementedError`` for the first plane argument of
+    ``call`` that is not off, naming the ROADMAP item that brings it
+    (``table``: argument -> (its off value, the item))."""
+    for name, value in planes.items():
+        off, later = table[name]
+        if value != off:
+            raise NotImplementedError(
+                f"{call}({name}={value!r}): not in the torch port yet; it "
+                f"comes with ROADMAP item {later}")
 
 
 # ---------------------------------------------------------------------------
@@ -103,9 +116,9 @@ class Sim:
 @dataclass
 class Metrics:
     """The run's accounting.  The reference's ``registry`` and ``faults``
-    fields, which only its planes fill, come with item A7, and its
-    ``rounds`` and ``comm_per_round``, which the baselines use, with
-    A6b."""
+    fields, which only its planes fill, come with item A7.  ``rounds``
+    counts the synchronous baselines' rounds; ``simulate_fedoptima``
+    never sets it."""
     K: int
     duration: float = 0.0
     dev_busy: np.ndarray = None
@@ -115,6 +128,7 @@ class Metrics:
     dev_samples: int = 0          # samples trained on devices
     srv_batches: int = 0          # activation batches consumed by the server
     aggregations: int = 0
+    rounds: int = 0
     max_buffered: int = 0         # peak Σ|Q_act| (memory check)
     profiles: StragglerProfiles = None   # measured per-device EMAs
     dev_consumed: np.ndarray = None      # (K,) per-device contributions the
@@ -146,6 +160,14 @@ class Metrics:
     @property
     def throughput(self) -> float:
         return self.dev_samples / max(self.duration, 1e-9)
+
+    def comm_per_round(self, total_dataset: int) -> float:
+        """Bytes up and down per pass over a dataset of ``total_dataset``
+        samples (Fig. 2)."""
+        if self.dev_samples == 0:
+            return 0.0
+        rounds = self.dev_samples / total_dataset
+        return (self.bytes_up + self.bytes_down) / max(rounds, 1e-9)
 
     # -- per-device contribution balance (Alg. 3's fairness objective) --
     def note_contribution(self, k: int):
@@ -266,14 +288,9 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         ``NotImplementedError``.  ``seed`` only seeds a selection policy,
         so it moves nothing here.
     """
-    planes = {"churn": churn, "fleet": fleet, "selection": selection,
-              "registry": registry, "faults": faults,
-              "fault_gate": fault_gate, "metrics_every": metrics_every}
-    for name, (off, later) in LATER.items():
-        if planes[name] != off:
-            raise NotImplementedError(
-                f"simulate_fedoptima({name}={planes[name]!r}): not in the "
-                f"torch port yet; it comes with ROADMAP item {later}")
+    refuse_later(LATER, "simulate_fedoptima", churn=churn, fleet=fleet,
+                 selection=selection, registry=registry, faults=faults,
+                 fault_gate=fault_gate, metrics_every=metrics_every)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)

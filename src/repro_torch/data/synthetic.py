@@ -1,11 +1,11 @@
 """Synthetic datasets (numpy; copies of the JAX package's
-``classification_dataset`` and ``lm_dataset``, so both packages draw the
-same data from one seed).
+``classification_dataset``, ``lm_dataset`` and ``lm_batches``, so both
+packages draw the same data from one seed).
 
   * ``classification_dataset`` — class-conditional Gaussian images (NHWC)
     whose class structure is learnable, for the sim-mode learners.
   * ``lm_dataset`` — token streams with a deterministic next-token
-    structure, for the pod round.
+    structure, for the pod round; ``lm_batches`` windows them.
 """
 from __future__ import annotations
 
@@ -47,3 +47,14 @@ def lm_dataset(n_tokens: int, vocab: int, seed: int = 0,
     for i in range(1, n_tokens):
         toks[i] = (a * toks[i - 1] + b) % vocab if det[i] else rnd[i]
     return toks
+
+
+def lm_batches(tokens: np.ndarray, batch: int, seq: int, seed: int = 0):
+    """Infinite iterator of (inputs, labels) windows."""
+    rng = np.random.default_rng(seed)
+    n = len(tokens) - seq - 1
+    while True:
+        idx = rng.integers(0, n, size=batch)
+        x = np.stack([tokens[i:i + seq] for i in idx])
+        y = np.stack([tokens[i + 1:i + seq + 1] for i in idx])
+        yield x, y

@@ -13,8 +13,9 @@ It also holds the pipelined executor to what only the card shows: its
 handles keep their round across in-place updates, window 2 overlaps host
 work with the card's, and a round's dispatch makes no host sync.
 
-It also runs the sim-mode FedOptima learner on the card against the CPU
-(``chip_smoke.sim_card_vs_cpu`` at a tiny size).
+It also runs the sim-mode FedOptima learner, and each baseline's learner,
+on the card against the CPU (``chip_smoke.sim_card_vs_cpu`` at a tiny
+size).
 
 The attention rows include head dim 128 with a GQA group of 8 (qwen3-32b)
 and with gemma2-27b's logit cap of 50 and a sliding window that cuts.
@@ -453,5 +454,28 @@ def test_cuda_sim_learner_matches_cpu():
     spec.loader.exec_module(cs)
     out = cs.sim_card_vs_cpu(torch, img=8, K=4, duration=10.0)
     assert out["counts"]["srv_batches"] > 0
+    assert out["counts"]["aggregations"] > 0
+    assert max(out["gaps"].values()) <= cs.SIM_PARAMS_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["fl", "fedasync", "fedbuff", "splitfed",
+                                      "pipar", "oafl"])
+def test_cuda_baseline_learner_matches_cpu(protocol):
+    """``chip_smoke.sim_card_vs_cpu`` for each baseline at a tiny size:
+    its VGG-5 learner (``FullModelLearner`` or ``SplitLearner``) at 8x8,
+    K=4, 40 simulated seconds, on the card and on the CPU: every count
+    bit-identical, the final global params within ``SIM_PARAMS_TOL``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the learner on the card")
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    out = cs.sim_card_vs_cpu(torch, img=8, K=4, duration=40.0,
+                             protocol=protocol)
+    assert out["counts"]["dev_samples"] > 0
     assert out["counts"]["aggregations"] > 0
     assert max(out["gaps"].values()) <= cs.SIM_PARAMS_TOL
