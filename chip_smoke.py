@@ -129,6 +129,25 @@ exits non-zero:
    run profiled).  (d) the paper's four models at their published sizes
    under SplitFed and FedAsync (K=4, 20 simulated seconds): ms per device
    step, server step and aggregation, and peak memory.
+9. tiered store — the activation ring's host spill tier
+   (``repro_torch.memory.ActivationStore``) on smollm-135m's main path
+   (full width and depth, G=4, batch 8, H=4, seq 1024, l_split 3, the
+   kernels, ω=2, ``--pool-cap 2``) through ``run_pod`` with a stalled
+   profile (``stalled_profiles``: the server reads nothing for
+   ``STORE_STALL`` rounds, then drains for as many): at window 2 in float32
+   (every boundary with moves run under
+   ``torch.cuda.set_sync_debug_mode("error")``: a spill or fill that
+   synchronises fails), at window 1 (histories and final state, ring
+   included, bit-identical to window 2's) and at window 2 with
+   ``--spill-quant``.  Each run: spills > 0, fills = spills, the pool
+   empty at the end, the buffered contributions past the ω ring (the
+   executor raises if the tiered cap ever breaks), finite losses, the
+   kernels launched as reckoned; its ``memory_s`` per round, pool peak MB
+   and ``hidden_host_frac_steady``.  Then ``--pool-cap 0`` with the store
+   wired against the executor with no store (two rounds, one stalled):
+   bit-identical.  Then one slot's spill and fill on the card, in float32
+   and int8 (``STORE_TIMED`` pairs, CUDA events; the host's enqueue time
+   beside them), the filled slot against the one spilled.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -262,6 +281,14 @@ SERVE = {"smollm-135m": (8, 1024, 32), "mamba2-780m": (8, 1024, 32),
 # most 9.331e-06 over the four served paths on an H100).
 SERVE_TOL = 1e-3
 SERVE_DECODE_TOL = 1e-4
+# Phase 9, the tiered store: smollm's main path with a ring of ω=2 slots and
+# a host pool of 2 (``--pool-cap 2``); the server reads nothing for
+# STORE_STALL rounds, then drains for as many.  One slot holds 8 x 1024 x
+# 576 float32 acts (18.87 MB) and int64 labels (65.5 kB).  STORE_TIMED spill
+# and fill pairs of one slot are timed after two untimed ones.
+STORE_FLAGS = ["--omega", "2", "--pool-cap", "2"]
+STORE_STALL = 3
+STORE_TIMED = 10
 # Params after two rounds, kernels vs plain: max |difference| (phase 4).
 # The paths read 2.384e-07 on an H100 (one float32 ulp at |p| in [2, 4)),
 # whisper-tiny 8.792e-07; a wrong kernel moves params by lr_d (0.05) times
@@ -1176,6 +1203,7 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
              for k in ("dev", "aux", "srv")} if keep_final else None
     return {"history": out["history"], "steady_tok_s": out["steady_tok_s"],
             "peak_bytes": peak, "launches": launches, "executor": xs,
+            "memory": out["memory"], "round_stats": stats,
             "final": final, "state": out["state"] if keep_state else None}
 
 
@@ -1205,6 +1233,192 @@ def phase_churn(torch, counters) -> None:
         raise AssertionError("windows 1 and 2 differ under churn")
     if not all(r["retired"] for r in retention.values()):
         raise AssertionError(f"no group was retired under churn: {retention}")
+
+
+def stalled_profiles(n_groups: int, stall: int):
+    """The reference tests' stalled profile (``tests/test_memory.py``
+    ``_StalledProfiles``): for the first ``stall`` plans every group emits
+    and the server reads nothing, so the backlog builds and slots spill;
+    then emission stops and the server drains, so the pool fills back."""
+    import numpy as np
+
+    from repro_torch.core.executor import StragglerProfiles
+
+    class Stalled(StragglerProfiles):
+        planned = 0
+
+        def produce(self, H):
+            self.planned += 1       # produce() is called first each round
+            return np.full((H, self.G), self.planned <= stall, bool)
+
+        def reads(self, H):
+            return np.full(H, self.planned > stall, bool)
+    return Stalled(n_groups)
+
+
+def time_slot_moves(torch, state, quant: bool) -> dict:
+    """One ring slot's spill (``gather_act_slot`` into a store: the int8
+    encoding on the card under ``quant``, then the copy into pinned host
+    memory) and fill (``store.fill``: the copy back and the decode on the
+    card, then ``scatter_act_slot``), each timed with CUDA events around
+    its enqueue, median of ``STORE_TIMED`` pairs after two untimed ones,
+    with the host's enqueue time beside it.  The slot after each pair is
+    held against its content before: bit-identical in float32, within
+    max|x|/254 in int8 (float32 leaves slot 0 as it found it)."""
+    from repro_torch.core import fedopt_step as F
+    from repro_torch.memory import ActivationStore
+    store = ActivationStore(1, quant=quant)
+    before = {k: v.clone() for k, v in F.gather_act_slot(state, 0).items()}
+    ms = {"spill": [], "fill": [], "spill_host": [], "fill_host": []}
+    worst = 0.0
+    for i in range(STORE_TIMED + 2):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        h0 = time.perf_counter()
+        store.spill(i, F.gather_act_slot(state, 0))
+        ev[1].record()
+        h1 = time.perf_counter()
+        F.scatter_act_slot(state, 0, store.fill(i))
+        ev[2].record()
+        h2 = time.perf_counter()
+        torch.cuda.synchronize()
+        after = F.gather_act_slot(state, 0)
+        if not torch.equal(after["labels"], before["labels"]):
+            raise AssertionError("a filled slot's labels differ")
+        err = float((after["acts"] - before["acts"]).abs().max())
+        amax = float(before["acts"].abs().max())
+        bound = amax / 254.0 + 1e-7 * amax if quant else 0.0
+        if err > bound:
+            raise AssertionError(f"filled slot off by {err:.3e}, bound "
+                                 f"{bound:.3e} (quant {quant})")
+        worst = max(worst, err)
+        if i >= 2:
+            ms["spill"].append(ev[0].elapsed_time(ev[1]))
+            ms["fill"].append(ev[1].elapsed_time(ev[2]))
+            ms["spill_host"].append((h1 - h0) * 1e3)
+            ms["fill_host"].append((h2 - h1) * 1e3)
+    out = {k: statistics.median(v) for k, v in ms.items()}
+    out.update(pool_mb=store.peak_pool_bytes / 1e6, max_err=worst,
+               slot_mb=sum(v.numel() * v.element_size()
+                           for v in before.values()) / 1e6)
+    return out
+
+
+def phase_store(torch, counters) -> dict:
+    """Phase 9 (see the module docstring): smollm's main path with the
+    tiered store under a stalled profile."""
+    from repro_torch.core import executor as ex_mod
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    _, cfg = main_setup("smollm-135m", STORE_FLAGS)
+    per_round, want = launches_per_round(cfg, counters)
+    boundaries = []          # (round, fills, spills) run under sync checks
+    apply_memory = ex_mod.RoundExecutor._apply_memory
+
+    def no_sync_memory(self, state, plan, r):
+        if not (plan.fill or plan.spill):
+            return apply_memory(self, state, plan, r)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return apply_memory(self, state, plan, r)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            boundaries.append((r, len(plan.fill), len(plan.spill)))
+
+    def run(flags, stall, check_pool=True):
+        args, cfg = main_setup("smollm-135m", STORE_FLAGS + flags)
+        args.profiles = stalled_profiles(cfg.n_groups, stall)
+        out = drive(torch, args, cfg, counters, keep_state=True)
+        rounds = args.rounds
+        if out["launches"] != {k: n * rounds for k, n in want.items()}:
+            raise AssertionError(f"launches {out['launches']}, want "
+                                 f"{rounds} x {want}")
+        if not all(math.isfinite(m[k]) for m in out["history"]
+                   for k in ("d_loss", "s_loss")):
+            raise AssertionError(f"non-finite loss {out['history']}")
+        mem = out["memory"]
+        tag = f"[store] {' '.join(flags)}"
+        print(f"{tag}: memory {mem} | memory_s per round "
+              f"{[round(s.memory_s, 6) for s in out['round_stats']]} | plan"
+              f" s {[round(s.plan_s, 4) for s in out['round_stats']]} | "
+              f"hidden_host_frac_steady "
+              f"{out['executor']['hidden_host_frac_steady']:.4f}",
+              flush=True)
+        if check_pool and not (
+                mem["spills"] > 0 and mem["fills"] == mem["spills"]
+                == mem["store_spills"] == mem["store_fills"]
+                and mem["pool_live"] == mem["pool_entries"] == 0
+                and mem["peak_buffered"] > cfg.omega * cfg.n_groups):
+            raise AssertionError(f"{tag}: the pool did not spill past the "
+                                 f"ring and drain: {mem}")
+        return out
+
+    def same(a, b):
+        return a["history"] == b["history"] and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(a["state"]),
+                                              tree_leaves(b["state"])))
+
+    rounds = ["--rounds", str(2 * STORE_STALL)]
+    ex_mod.RoundExecutor._apply_memory = no_sync_memory
+    try:
+        f32 = run(rounds + ["--window", "2"], STORE_STALL)
+    finally:
+        ex_mod.RoundExecutor._apply_memory = apply_memory
+    w1 = run(rounds + ["--window", "1"], STORE_STALL)
+    if not same(f32, w1):
+        raise AssertionError("windows 1 and 2 differ with the pool active")
+    del w1
+    # the ring as the float32 run left it: its slots were never quantised
+    moves = time_slot_moves(torch, f32["state"], quant=False)
+    moves8 = time_slot_moves(torch, f32["state"], quant=True)
+    f32["state"] = None
+    int8 = run(rounds + ["--window", "2", "--spill-quant"], STORE_STALL)
+    int8["state"] = None
+    # --pool-cap 0 with the store wired against no store at all
+    wired = run(["--rounds", "2", "--pool-cap", "0"], 1, check_pool=False)
+    executor = train.RoundExecutor
+
+    def storeless(step, cplane, **kw):
+        for k in ("store", "gather_slot", "scatter_slot"):
+            kw.pop(k)
+        return executor(step, cplane, **kw)
+    train.RoundExecutor = storeless
+    try:
+        bare = run(["--rounds", "2", "--pool-cap", "0"], 1, check_pool=False)
+    finally:
+        train.RoundExecutor = executor
+    if "memory" in bare["executor"] or not same(wired, bare):
+        raise AssertionError("--pool-cap 0 with the store wired differs "
+                             "from the storeless run")
+    if wired["memory"]["spills"] or not boundaries:
+        raise AssertionError(f"moves at pool 0, or none checked: "
+                             f"{wired['memory']}, {boundaries}")
+    del wired, bare
+    print(f"[store] smollm-135m full width, omega 2 + pool 2, stall "
+          f"{STORE_STALL} then drain {STORE_STALL}: spills/fills f32 "
+          f"{f32['memory']['spills']}/{f32['memory']['fills']}, int8 "
+          f"{int8['memory']['spills']}/{int8['memory']['fills']}; pool peak "
+          f"{f32['memory']['peak_pool_bytes'] / 1e6:.3f} MB f32, "
+          f"{int8['memory']['peak_pool_bytes'] / 1e6:.3f} MB int8; within "
+          f"the tiered cap every round; windows 1 and 2 bit-identical; pool "
+          f"0 wired == storeless; boundaries with moves under "
+          f"set_sync_debug_mode('error'): {boundaries}; launches per round "
+          f"{per_round} | {smi_name_power()}", flush=True)
+    for name, m in (("f32", moves), ("int8", moves8)):
+        print(f"[store] one slot ({m['slot_mb']:.3f} MB on the card), {name}"
+              f": spill {m['spill']:.4f} ms, fill {m['fill']:.4f} ms (CUDA "
+              f"events, median of {STORE_TIMED}; "
+              f"{m['slot_mb'] / m['spill']:.2f} / "
+              f"{m['slot_mb'] / m['fill']:.2f} GB/s of the slot's card "
+              f"bytes) | host enqueue {m['spill_host']:.4f} / "
+              f"{m['fill_host']:.4f} ms | pool {m['pool_mb']:.3f} MB | "
+              f"round trip max err {m['max_err']:.3e} | {smi_name_power()}",
+              flush=True)
+    print(f"[store] phase {time.perf_counter() - t0:.0f} s", flush=True)
+    return {"launches": f32["launches"], "moves": {"f32": moves,
+                                                   "int8": moves8}}
 
 
 def phase_wide(torch, arch: str, counters) -> dict:
@@ -2103,6 +2317,9 @@ def main() -> int:
     t1 = time.perf_counter()
     phase_baselines(torch, (fa, ssd_k))
     print(f"[time] baselines: {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    store = phase_store(torch, (fa, ssd_k))
+    print(f"[time] tiered store: {time.perf_counter() - t1:.0f} s", flush=True)
     served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
               if run["serve"] is not None}
     kernels = []
@@ -2120,8 +2337,10 @@ def main() -> int:
                         "shape": rec["shape"],
                         "device_shape": record[name]["main-dev"],
                         "launches_by_path": {
-                            p: run["launches"][name]
-                            for p, run in {**paths, **wide}.items()},
+                            **{p: run["launches"][name]
+                               for p, run in {**paths, **wide}.items()},
+                            "smollm-135m tiered store":
+                                store["launches"][name]},
                         "serve_launches": {p: n[name]
                                            for p, n in served.items()}})
         if name.startswith("ssd_"):

@@ -19,6 +19,20 @@ plus the ``retire``/``restore`` group lists for dropped and rejoining
 groups, whose dev/aux params the driver moves through the
 :class:`RetentionStore`.
 
+Tiered memory (``repro_torch.memory``): with ``pool_cap > 0`` the ω-ring is
+tier 0 of a two-tier store.  When every ring slot holds unconsumed
+contributions, ``plan_round`` no longer gates all sends: it plans an
+eviction (a policy-chosen victim slot goes to the host spill pool) so the
+write can land, and fills pooled entries back into free slots at the next
+round boundary.  The moves ride the plan as ``spill``/``fill`` lists (slot
+and pool-key pairs); the executor performs them against an
+:class:`~repro_torch.memory.store.ActivationStore` BEFORE the round is
+dispatched, so every spill holds pre-round ring content (a slot written
+this round is never a victim).  Flow control admits against the total
+tiered budget ω + pool_cap, so Σ buffered ≤ (ω + pool_cap) · units is the
+``within_cap`` invariant; with ``pool_cap == 0`` every path is the hard-ω
+behaviour, bit for bit.
+
 The same class fronts the event simulator (``simulation.py``): there the
 scheduler and flow units are per-device activation batches, which the
 simulator drives in event order, with the per-arrival staleness hooks
@@ -26,9 +40,9 @@ simulator drives in event order, with the per-arrival staleness hooks
 builds that configuration, whose spill budget is the flow controller's
 arithmetic alone.
 
-A copy of the JAX package's control plane with the pod path's spill tier
-off (``pool_cap=0``): the tiered store and checkpointing of the plan come
-with later slices of the port.
+A copy of the JAX package's control plane without its plan checkpointing
+(``state_dict``), its advisory prefetch (``plan_round(lookahead=)``,
+``RoundPlan.prefetch``) and its sanitizer and trace emits.
 """
 from __future__ import annotations
 
@@ -55,6 +69,10 @@ class RoundPlan:
     bcast_mask: np.ndarray = None   # (G,) float32; None -> all receive
     retire: tuple = ()       # groups that just dropped: gather to retention
     restore: tuple = ()      # rejoining groups: scatter retained state back
+    # tiered-store moves, performed by the executor at the round boundary
+    # (fills BEFORE spills, so the pool never transiently exceeds its cap)
+    fill: tuple = ()         # (pool_key, slot): pool entry -> free ring slot
+    spill: tuple = ()        # (slot, pool_key): evicted ring slot -> pool
 
     def batch_fields(self, device) -> dict:
         """The plan as step batch fields: the masks and weights as tensors
@@ -126,11 +144,6 @@ class ControlPlane:
             raise ValueError(
                 f"unknown flow unit {unit!r}; expected 'group' (pod path) "
                 "or 'device' (event simulator)")
-        if unit == "group" and pool_cap != 0:
-            raise NotImplementedError(
-                f"pool_cap={pool_cap}: the pod path's tiered activation "
-                "store is not in the torch port yet; it comes with ROADMAP "
-                "item A2, the tiered activation store")
         self.G = n_groups
         self.omega = omega
         self.H = H
@@ -151,11 +164,19 @@ class ControlPlane:
         self.prev_active = np.ones(n_groups, bool)     # last round's roster
         self.n_accepted = 0
         self.n_rejected = 0
-        self.peak_buffered = 0
-        self.peak_live_slots = 0
+        self.peak_buffered = 0        # peak Σ|Q_act| in flow units
+        self.peak_live_slots = 0      # peak occupied ring slots (pod path)
         self._slot_groups = [set() for _ in range(omega)]
         self._next_write = 0
         self._last_read = 0
+        # -- spill tier (pod path; slot granularity) --
+        self._pool: dict[int, tuple] = {}   # pool key -> contributor groups
+        self._next_pool_key = 0
+        self._slot_touch = [0] * omega      # last tick written/filled (LRU)
+        self._tick = 0
+        self.n_spills = 0
+        self.n_fills = 0
+        self.peak_pool = 0                  # peak occupied pool entries
 
     @classmethod
     def for_sim(cls, n_devices: int, omega: int, **kw):
@@ -191,6 +212,16 @@ class ControlPlane:
                         if int(g) in self.retention)
         self.prev_active = active.copy()
 
+        # tiered store: round-boundary moves.  Fills first (pooled entries
+        # return to free ring slots, scheduler-priority order); spills are
+        # planned by _plan_write when the ring is full.  Both run before
+        # dispatch, so only pre-round ring content may spill
+        self._tick += 1
+        fill = self._plan_fills()
+        self._round_filled = {s for _, s in fill}
+        self._round_written: set[int] = set()
+        self._round_spills: list[tuple[int, int]] = []
+
         read_slot = np.zeros(H, np.int32)
         write_slot = np.zeros(H, np.int32)
         send_mask = np.zeros((H, G), np.float32)
@@ -203,7 +234,8 @@ class ControlPlane:
                          send_mask=send_mask,
                          agg_weight=self.agg_weights(active),
                          bcast_mask=active.astype(np.float32),
-                         retire=retire, restore=restore)
+                         retire=retire, restore=restore,
+                         fill=fill, spill=tuple(self._round_spills))
 
     def retain_group(self, g: int, params):
         """Hold a dropped group's dev/aux params at its last-synced version."""
@@ -235,13 +267,18 @@ class ControlPlane:
         return s
 
     def _plan_write(self, offer: np.ndarray, mask_row: np.ndarray) -> int:
-        """Allocate a free ring slot and grant sends into it; with no free
-        slot nobody sends (a masked no-op write: the hard ω cap)."""
+        """Allocate a free ring slot and grant sends into it.  When every
+        slot holds unconsumed contributions and the spill pool has room, a
+        policy-chosen victim slot is evicted to the host tier so the write
+        can land; only when the total tiered budget is spent does nobody
+        send (a masked no-op write: the ω + pool_cap cap)."""
         order = [int(g) for g in
                  sorted(np.flatnonzero(offer),
                         key=lambda g: (self.scheduler.counters.get(g, 0), g))
                  if self.flow.can_send(g)]
         w = self._free_slot()
+        if w is None and order:
+            w = self._spill_for_write()      # evict to the host tier
         if w is None:
             return int(self._next_write)
         for g in order:
@@ -252,6 +289,8 @@ class ControlPlane:
             mask_row[g] = 1.0
         if self._slot_groups[w]:
             self._next_write = (w + 1) % self.omega
+            self._round_written.add(w)
+            self._slot_touch[w] = self._tick
         self.peak_buffered = max(self.peak_buffered, self.flow.buffered)
         self.peak_live_slots = max(self.peak_live_slots, self.live_slots)
         return w
@@ -262,6 +301,67 @@ class ControlPlane:
             if not self._slot_groups[s]:
                 return s
         return None
+
+    # ------------------------------------------------------------------
+    # tiered store planning (repro_torch.memory; pod path, slot granularity)
+    # ------------------------------------------------------------------
+
+    def _plan_fills(self) -> tuple:
+        """Move pooled entries back into free ring slots at the round
+        boundary, the policy's ``fill_order`` first; re-``put`` each
+        contribution so Alg. 3 can serve it this round."""
+        if not self._pool:
+            return ()
+        free = [s for s in range(self.omega) if not self._slot_groups[s]]
+        if not free:
+            # a stalled full ring is the pool's steady state: skip the
+            # policy's ranking when nothing could be filled anyway
+            return ()
+        order = self.mem_policy.fill_order(
+            list(self._pool), groups_of=lambda k: self._pool[k],
+            share=self.consumption_share)
+        moves = []
+        for key, s in zip(order, free):
+            groups = self._pool.pop(key)
+            self._slot_groups[s] = set(groups)
+            self._slot_touch[s] = self._tick
+            for g in groups:
+                self.scheduler.put(Message("activation", int(g),
+                                           content=int(s)))
+            moves.append((int(key), int(s)))
+            self.n_fills += 1
+        return tuple(moves)
+
+    def _spill_for_write(self) -> int | None:
+        """Evict one live ring slot to the host pool, freeing it for this
+        write.  Victims must hold PRE-round content (the spill happens
+        before dispatch): slots written this round are not eligible; slots
+        filled this round only as a last resort (the executor runs fills
+        before spills, so the round trip is consistent, just wasted
+        bandwidth the policies avoid)."""
+        if len(self._pool) >= self.pool_cap:
+            return None
+        live = [s for s in range(self.omega)
+                if self._slot_groups[s] and s not in self._round_written]
+        candidates = [s for s in live if s not in self._round_filled] or live
+        if not candidates:
+            return None
+        s = self.mem_policy.victim(
+            candidates, groups_of=lambda t: self._slot_groups[t],
+            share=self.consumption_share, touch=self._slot_touch)
+        key = self._next_pool_key
+        self._next_pool_key += 1
+        groups = tuple(sorted(self._slot_groups[s]))
+        # the buffered contributions follow the payload to the host tier:
+        # withdrawn from the scheduler (no consumption counted), re-put on
+        # fill; their flow budget stays held, as they are still buffered
+        self.scheduler.withdraw_slot(s, groups)
+        self._pool[key] = groups
+        self._slot_groups[s].clear()
+        self._round_spills.append((int(s), int(key)))
+        self.n_spills += 1
+        self.peak_pool = max(self.peak_pool, len(self._pool))
+        return s
 
     # ------------------------------------------------------------------
     # staleness-weighted aggregation bookkeeping (Alg. 4)
@@ -331,9 +431,26 @@ class ControlPlane:
     def consumption(self) -> dict[int, int]:
         return dict(self.scheduler.counters)
 
+    def consumption_share(self, g: int) -> float:
+        total = sum(self.scheduler.counters.values())
+        return self.scheduler.counters.get(g, 0) / max(total, 1)
+
+    @property
+    def pool_live(self) -> int:
+        """Occupied host spill-pool entries (pod path)."""
+        return len(self._pool)
+
+    @property
+    def pool_occupancy(self) -> dict:
+        """Pool key -> contributor groups, key order."""
+        return {k: list(self._pool[k]) for k in sorted(self._pool)}
+
     @property
     def within_cap(self) -> bool:
-        return self.flow.within_cap and self.live_slots <= self.omega
+        """Σ|Q_act| ≤ ω + pool_cap in flow units, live ring slots ≤ ω and
+        occupied pool entries ≤ pool_cap (the tiered Eq. 3)."""
+        return (self.flow.within_cap and self.live_slots <= self.omega
+                and len(self._pool) <= self.pool_cap)
 
     def note_buffered(self, n: int):
         """Record an externally observed buffer occupancy (sim path)."""
@@ -341,15 +458,20 @@ class ControlPlane:
 
     def memory_summary(self) -> dict:
         """JSON-able tier accounting: spill/fill/eviction counts + peaks.
-        The pod path has no spill tier in the port yet (its counts are
-        0); the event simulator's come from the flow controller, one per
-        device activation batch admitted past ω."""
+        The pod path counts at slot granularity (one spill = one ring slot
+        of all its contributions); the event simulator has no ring, so its
+        counts come from the flow controller, one per device activation
+        batch admitted past ω."""
         out = {"omega": self.omega, "pool_cap": self.pool_cap,
                "eviction": self.mem_policy.name,
                "peak_buffered": int(self.peak_buffered)}
         if self.unit == "group":
-            out.update(spills=0, fills=0, evictions=0, pool_live=0,
-                       peak_pool=0,
+            # every pod-path spill IS a victim selection, so evictions is
+            # derived, not a second counter to keep in step
+            out.update(spills=self.n_spills, fills=self.n_fills,
+                       evictions=self.n_spills,
+                       pool_live=len(self._pool),
+                       peak_pool=int(self.peak_pool),
                        peak_live_slots=int(self.peak_live_slots))
         else:
             out.update(spills=self.flow.n_spilled, fills=self.flow.n_filled,

@@ -30,13 +30,21 @@ It also owns the host-card consistency duties of the round loop:
   write the live state: at a boundary the next round is not dispatched
   yet, so its values ARE the previous round's output at any window (the
   gather waits for that round, as the reference's handle copy does).
+* **the tiered activation store** — a plan's ``fill`` and ``spill`` moves
+  run at the boundary, after retention and before the batch is built:
+  pooled slots go back into free ring slots, then victim slots go to the
+  host pool (``repro_torch.memory.ActivationStore``).  The copies are
+  enqueued on the stream between round r-1's kernels and round r's, so a
+  spill reads the ring as round r-1 left it (the reference slices a
+  handle there only because its step donates the ring) and neither move
+  makes a host sync.
 
-The ω-cap invariant raises ``RuntimeError`` with the ring-slot occupancy.
+The cap invariant (ω ring slots, ω + pool_cap in flow units) raises
+``RuntimeError`` with the ring-slot and pool occupancy.
 
 The torch form of the JAX package's ``core/executor.py``.  Still to come:
-the tiered store's fills and spills (``store``, ``gather_slot``,
-``scatter_slot``, ``_apply_memory``), the fault and fleet planes
-(``faults``, ``registry``) and the trace and sanitizer emits.
+the fault and fleet planes (``faults``, ``registry``) and the trace and
+sanitizer emits; the store's advisory prefetch is not ported.
 """
 from __future__ import annotations
 
@@ -208,6 +216,8 @@ class RoundStats:
     """Per-round host/card accounting (times in seconds)."""
     round: int
     plan_s: float = 0.0          # plan_round + retention transfers
+    memory_s: float = 0.0        # host time enqueueing the plan's fills and
+                                 # spills (the copies run on the card)
     build_s: float = 0.0         # host batch assembly
     dispatch_s: float = 0.0      # host time inside step(): enqueueing the
                                  # round's kernels (eager torch runs Python
@@ -279,10 +289,22 @@ class RoundExecutor:
         ``gather(state, g) -> params`` (host copies) and
         ``scatter(state, g, params) -> state``; see
         ``fedopt_step.gather_group_state`` / ``scatter_group_state``.
+    store / gather_slot / scatter_slot : tiered activation store wiring
+        ``store`` is a ``repro_torch.memory.ActivationStore`` (the host
+        spill pool); ``gather_slot(state, s) -> payload`` and
+        ``scatter_slot(state, s, payload) -> state`` move one ring slot
+        (``fedopt_step.gather_act_slot`` / ``scatter_act_slot``).  Fills
+        run before spills, so the pool never transiently exceeds its cap;
+        a slot filled and spilled at the same boundary spills the fill
+        payload itself.
+    metrics : MetricsRegistry | None
+        The registry behind the executor's instruments (shared with the
+        store by the driver); a fresh one by default.
     """
 
     def __init__(self, step, cplane, *, window: int = 1, profiles=None,
-                 gather=None, scatter=None):
+                 gather=None, scatter=None, store=None, gather_slot=None,
+                 scatter_slot=None, metrics=None):
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.step = step
@@ -291,9 +313,12 @@ class RoundExecutor:
         self.profiles = profiles
         self.gather = gather
         self.scatter = scatter
+        self.store = store
+        self.gather_slot = gather_slot
+        self.scatter_slot = scatter_slot
         self.stats: list[RoundStats] = []
         # -- instruments (pure bookkeeping; legacy names are properties) --
-        self.metrics = MetricsRegistry()
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
         self._g_in_flight = self.metrics.gauge("exec.in_flight")
         self._c_host_s = self.metrics.counter("exec.host_s")
         self._c_hidden_s = self.metrics.counter("exec.hidden_host_s")
@@ -375,10 +400,13 @@ class RoundExecutor:
             plan = self.cplane.plan_round(active=active, produce=produce,
                                           reads=reads)
             state = self._apply_retention(state, plan, r)
+            tm = _now()
+            state = self._apply_memory(state, plan, r)
             t1 = _now()
             batch = batch_fn(r, plan)
             t2 = _now()
-            st = RoundStats(round=r, plan_s=t1 - t0, build_s=t2 - t1,
+            st = RoundStats(round=r, plan_s=tm - t0, memory_s=t1 - tm,
+                            build_s=t2 - t1,
                             in_flight_at_dispatch=len(self._pending),
                             plan=plan, _host_t0=t0, _dispatch_t=t2)
             state, metrics = self.step(state, batch)
@@ -474,14 +502,43 @@ class RoundExecutor:
             self.n_restored += 1
         return state
 
+    def _apply_memory(self, state, plan, r: int):
+        """Perform the plan's tiered-store moves before dispatch.  Fills
+        first (a fill frees the pool entry a same-boundary spill may
+        need), then spills of pre-round ring content into the host pool.
+        Round r is not dispatched yet, so the live ring holds round r-1's
+        output in stream order at any window."""
+        if not (plan.fill or plan.spill):
+            return state
+        if self.store is None or self.gather_slot is None or \
+                self.scatter_slot is None:
+            raise RuntimeError(
+                f"round {r} plans spill/fill moves "
+                f"(fill={plan.fill}, spill={plan.spill}) but this executor "
+                "has no ActivationStore wiring — pass store=/gather_slot=/"
+                "scatter_slot= (fedopt_step.gather_act_slot/"
+                "scatter_act_slot) for runs with pool_cap > 0")
+        filled: dict[int, dict] = {}
+        for key, s in plan.fill:
+            payload = self.store.fill(key)
+            filled[s] = payload
+            state = self.scatter_slot(state, s, payload)
+        for s, key in plan.spill:
+            # fill-then-spill of one slot at one boundary spills the fill
+            # payload itself (the ring slot holds the same values)
+            self.store.spill(key, filled[s] if s in filled
+                             else self.gather_slot(state, s))
+        return state
+
     def _check_cap(self, r: int):
         cp = self.cplane
         if not cp.within_cap:
             raise RuntimeError(
-                f"activation cap ω={cp.omega} violated after round {r}: "
-                f"{cp.live_slots}/{cp.omega} live ring slots "
-                f"(occupancy={cp.slot_occupancy}), flow "
-                f"promised={cp.flow.promised} of cap={cp.flow.omega} "
+                f"activation cap ω={cp.omega}+pool={cp.pool_cap} violated "
+                f"after round {r}: {cp.live_slots}/{cp.omega} live ring "
+                f"slots (occupancy={cp.slot_occupancy}), "
+                f"{cp.pool_live}/{cp.pool_cap} pool entries, flow "
+                f"promised={cp.flow.promised} of cap={cp.flow.cap} "
                 f"(buffered={cp.flow.buffered}, "
                 f"inflight={cp.flow.inflight}, "
                 f"tokens={cp.flow.active_tokens})")
@@ -518,7 +575,7 @@ class RoundExecutor:
         st.round_wall_s = wall
         if self.profiles is not None:
             self.profiles.observe_round(wall, self.cplane.H)
-        self._c_host_s.inc(st.plan_s + st.build_s)
+        self._c_host_s.inc(st.plan_s + st.memory_s + st.build_s)
         self._c_hidden_s.inc(st.hidden_host_s)
         self._h_plan.observe(st.plan_s)
         self._h_build.observe(st.build_s)
@@ -543,7 +600,7 @@ class RoundExecutor:
         n = len(self.stats)
         warmup = min(n, self.window)
         steady = self.stats[warmup:]
-        host_steady = sum(s.plan_s + s.build_s for s in steady)
+        host_steady = sum(s.plan_s + s.memory_s + s.build_s for s in steady)
         hidden_steady = sum(s.hidden_host_s for s in steady)
         out = {
             "rounds": n,
@@ -569,4 +626,7 @@ class RoundExecutor:
         }
         if self.profiles is not None:
             out["profiles"] = self.profiles.summary()
+        if self.store is not None:
+            out["memory"] = {**self.cplane.memory_summary(),
+                             **self.store.summary()}
         return out

@@ -136,7 +136,8 @@ def identity_schedule(cfg: FedStepConfig, device) -> dict:
 
 
 def _quant(x):
-    """Per-tensor int8 quantization of the aggregation payload."""
+    """Per-tensor int8 quantization of the aggregation payload; also the
+    tiered store's int8 spill encoding (``repro_torch.memory.store``)."""
     xf = x.float()
     scale = torch.clamp(torch.max(torch.abs(xf)), min=1e-12) / 127.0
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), \
@@ -302,6 +303,33 @@ def make_train_step(cfg: FedStepConfig):
         return new_state, metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Tiered activation store: ring slots to and from the host pool
+# ---------------------------------------------------------------------------
+
+def gather_act_slot(state: dict, s: int) -> dict:
+    """Ring slot ``s`` for the host pool (spill path of the tiered store,
+    ``repro_torch.memory``): one scheduled batch, acts, labels and any
+    tokens/frontend leaves, as views into the ring.  The executor calls it
+    at a boundary, before the next round is dispatched, and the store
+    copies the views at once (quantised on the card under
+    ``--spill-quant``, then into pinned host memory without blocking), so
+    the copies read in stream order what the previous round left: no host
+    sync, and the next round's in-place writes cannot reach them."""
+    return {k: v[s] for k, v in state["act_buf"].items()}
+
+
+def scatter_act_slot(state: dict, s: int, payload: dict) -> dict:
+    """Write one filled slot's payload back into ring slot ``s``, in place
+    (fill path): leaves already on the ring's device, as
+    ``ActivationStore.fill`` hands them back, are copied there on the
+    stream; host leaves through pinned buffers.  No host sync."""
+    with torch.no_grad():
+        for k, v in payload.items():
+            copy_into(state["act_buf"][k][s], v)
+    return state
 
 
 # ---------------------------------------------------------------------------

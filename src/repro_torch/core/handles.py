@@ -19,8 +19,9 @@ kernels have run.  A :class:`RoundHandle` keeps round r's values:
   that copy alone: the retention gather of a dropped group.
 
 A :class:`HandleRing` keeps the last ``depth`` handles, with byte
-accounting.  The torch form of the JAX package's ``core/handles.py``;
-the activation-slot slice (``act_slot``) comes with the tiered store.
+accounting.  The torch form of the JAX package's ``core/handles.py``,
+without its activation-slot slice (``act_slot``): the port's spill reads
+the live ring in stream order (``fedopt_step.gather_act_slot``).
 """
 from __future__ import annotations
 

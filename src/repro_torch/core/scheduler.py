@@ -6,10 +6,10 @@ get():  models first (priority); else the activation queue of the device
 
 The counter-based policy prevents fast devices from dominating server-side
 training (Challenge 3).  A FIFO policy is included for the §6.5.2 ablation.
-A copy of the JAX package's scheduler without its sanitizer hooks and its
-spill-tier withdrawal, which come with the tiered store's slice.  The pod
-path carries ring slots in ``content``; the event simulator also stamps
-each activation with its size and arrival time.
+A copy of the JAX package's scheduler without its sanitizer hooks.  The
+pod path carries ring slots in ``content`` (the tiered store withdraws a
+spilled slot's messages and puts them back on fill); the event simulator
+also stamps each activation with its size and arrival time.
 """
 from __future__ import annotations
 
@@ -120,6 +120,39 @@ class TaskScheduler:
                             pass
                     break
             self._purge_if_drained(g)
+
+    def withdraw_slot(self, s: Any, groups) -> None:
+        """Spill-tier withdrawal: each listed group's buffered contribution
+        to ring slot ``s`` leaves the queues WITHOUT being counted as
+        consumed; the payload moves to the host spill pool and its messages
+        are re-``put`` on fill.  Under FIFO the arrival-log entry retired is
+        the one MATCHING the withdrawn message (a group's arrival entries
+        appear in its queue order, and eviction, unlike consumption, may
+        take a newer message than the group's oldest), so unspilled
+        contributions keep their arrival position; the spill/fill round
+        trip itself re-enqueues at the back of the arrival order."""
+        for g in groups:
+            q = self.q_act.get(g)
+            if not q:
+                continue
+            for idx, m in enumerate(list(q)):
+                if m.content == s:
+                    q.remove(m)
+                    if self.policy == "fifo":
+                        self._drop_arrival(g, idx)
+                    break
+            self._purge_if_drained(g)
+
+    def _drop_arrival(self, g: int, nth: int) -> None:
+        """Delete the (nth+1)-th occurrence of ``g`` from the arrival log
+        (the entry for g's queue position ``nth``)."""
+        seen = 0
+        for j, a in enumerate(self._arrival):
+            if a == g:
+                if seen == nth:
+                    del self._arrival[j]
+                    return
+                seen += 1
 
     # -- introspection --
     @property

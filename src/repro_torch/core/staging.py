@@ -16,11 +16,14 @@ import torch
 
 
 def copy_into(dst: torch.Tensor, src) -> torch.Tensor:
-    """``dst.copy_(src)`` for a host ``src`` (numpy or a CPU tensor); on the
-    card through a pinned buffer, enqueued on the current stream."""
+    """``dst.copy_(src)``, enqueued on the current stream when ``dst`` is on
+    the card: a pageable host ``src`` (numpy or a CPU tensor) through a
+    pinned buffer, a pinned or card ``src`` directly."""
     src = torch.as_tensor(src)
     if dst.device.type != "cuda":
         return dst.copy_(src)
+    if src.is_cuda or src.is_pinned():
+        return dst.copy_(src, non_blocking=True)
     pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
     pinned.copy_(src)
     return dst.copy_(pinned, non_blocking=True)

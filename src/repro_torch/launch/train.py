@@ -7,9 +7,13 @@ rounds through the pipelined ``RoundExecutor`` (``core/executor``), with
 synchronous loop, and the metrics are the same at every window).  Per round
 the executor takes the roster (``--p-drop``), plans the round on the host
 ``ControlPlane``, retires and restores dropped groups through the retention
-store, builds the batch with the JAX driver's numpy RNG stream and
-dispatches the step; each round's ``round N d_loss … s_loss …`` line is
-printed when it drains.
+store, moves the plan's spills and fills between the ring and the host
+pool of the tiered activation store (``--pool-cap``, default 0: the hard-ω
+ring; ``--spill-quant``, ``--eviction``), builds the batch with the JAX
+driver's numpy RNG stream and dispatches the step; each round's ``round N
+d_loss … s_loss …`` line is printed when it drains, and a ``memory:`` line
+reports the store's traffic at the end (0s unless the server stalls: a
+programmatic caller can set ``args.profiles`` to a stalled profile).
 
 ``--arch`` runs at its smoke reduction unless ``--full`` is given.  The
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
@@ -67,6 +71,8 @@ from repro_torch.core.executor import (RoundExecutor, StragglerProfiles,
 from repro_torch.core.staging import to_device
 from repro_torch.data.partitioner import dirichlet_partition
 from repro_torch.data.synthetic import lm_dataset
+from repro_torch.memory import ActivationStore
+from repro_torch.obs.metrics import MetricsRegistry
 
 #: Flags whose machinery comes with later items of ROADMAP.md's queue A:
 #: flag -> (attribute, the value that means "off", the item that brings it).
@@ -81,11 +87,6 @@ LATER = {
     "--sanitize": ("sanitize", False, "A7, the protocol sanitizer"),
     "--metrics-every": ("metrics_every", 0, "A7, the metrics dumps"),
     "--metrics-out": ("metrics_out", None, "A7, the metrics dumps"),
-}
-#: Refused in pod mode alone: the simulator's spill budget is flow-control
-#: arithmetic, the pod path's needs the store.
-POD_LATER = {
-    "--pool-cap": ("pool_cap", 0, "A2, the tiered activation store"),
 }
 
 
@@ -162,25 +163,37 @@ def pod_config(args) -> F.FedStepConfig:
 
 def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     """Run ``args.rounds`` rounds; returns {"history", "final", "executor",
-    "consumed", "steady_tok_s", "round_stats", "state"}.  A programmatic
+    "memory", "consumed", "steady_tok_s", "round_stats", "state"}.  A
+    programmatic
     caller may set ``args.on_round(r, metrics)``, called as each round
     drains with its metrics as floats, and ``args.profiles``, seeded
     ``StragglerProfiles`` (uniform by default), and may pass ``cfg`` to run
     in place of ``pod_config(args)`` (e.g. a full-width arch cut in depth
     with ``ArchConfig.scaled``)."""
-    _refuse_later_slices(args, {**LATER, **POD_LATER})
+    _refuse_later_slices(args, LATER)
     window = _pipeline_window(args)
     device = torch.device(args.device)
     cfg = cfg or pod_config(args)
     G = cfg.n_groups
+    # tiered-store knobs (pod default: no spill pool, bit for bit the
+    # hard-ω ring; raise --pool-cap to admit past the ring)
+    pool_cap = getattr(args, "pool_cap", None)
+    pool_cap = 0 if pool_cap is None else pool_cap
+    spill_quant = bool(getattr(args, "spill_quant", False))
     cplane = ControlPlane(G, cfg.omega, cfg.H, policy=args.policy,
-                          max_delay=args.max_delay)
+                          max_delay=args.max_delay, pool_cap=pool_cap,
+                          eviction=getattr(args, "eviction", None) or "share")
+    # one registry backs the executor and the spill store
+    reg = MetricsRegistry()
+    act_store = ActivationStore(pool_cap, quant=spill_quant, metrics=reg)
     streams = _group_streams(cfg, seed=args.seed)
     rng = np.random.default_rng(args.seed)
     profiles = getattr(args, "profiles", None) or StragglerProfiles(G)
     executor = RoundExecutor(F.make_train_step(cfg), cplane, window=window,
                              profiles=profiles, gather=F.gather_group_state,
-                             scatter=F.scatter_group_state)
+                             scatter=F.scatter_group_state, store=act_store,
+                             gather_slot=F.gather_act_slot,
+                             scatter_slot=F.scatter_act_slot, metrics=reg)
 
     def active_fn(r):
         roster = rng.random(G) >= args.p_drop
@@ -227,11 +240,18 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     if steady is not None:
         print(f"throughput: {steady:,.0f} tok/s over rounds 2-{n} (first "
               f"to last round completion), window {window}")
+    mem = {**cplane.memory_summary(), **act_store.summary()}
+    print(f"memory: spills {mem['spills']}  fills {mem['fills']}  "
+          f"evictions {mem['evictions']}  peak pool "
+          f"{mem['peak_pool']}/{pool_cap} slots "
+          f"({mem['peak_pool_bytes']/1e6:.1f} MB"
+          f"{', int8 spill' if spill_quant else ''})")
     consumed = [cplane.consumption.get(g, 0) for g in range(G)]
     print(f"contribution balance: consumed={consumed}")
     return {"history": history, "final": history[-1] if history else None,
-            "executor": xs, "consumed": consumed, "steady_tok_s": steady,
-            "round_stats": executor.stats, "state": state}
+            "executor": xs, "memory": mem, "consumed": consumed,
+            "steady_tok_s": steady, "round_stats": executor.stats,
+            "state": state}
 
 
 # ---------------------------------------------------------------------------
@@ -365,8 +385,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--duration", type=float, default=300.0,
                    help="simulated seconds (sim mode)")
     p.add_argument("--pool-cap", type=int, default=None,
-                   help="spill budget beyond ω in flow units (sim mode; "
-                        "default ω); the pod path refuses it until A2")
+                   help="host spill-pool depth backing the ω ring (tiered "
+                        "activation store, repro_torch.memory): admission "
+                        "runs against ω + pool_cap.  Pod default 0 (no "
+                        "pool, bit for bit the hard-ω ring), sim default ω")
+    p.add_argument("--spill-quant", action="store_true",
+                   help="int8-quantise spilled activation slots (per "
+                        "tensor, on the card; labels and tokens stay "
+                        "exact): pool bytes / ~4 for a bounded "
+                        "dequantisation error on refill")
+    p.add_argument("--eviction", default="share", choices=("share", "lru"),
+                   help="spill-victim policy: 'share' protects the "
+                        "contributions of the least-served groups "
+                        "(scheduler-aware), 'lru' evicts the least "
+                        "recently touched slot")
     p.add_argument("--window", type=int, default=2,
                    help="pipelined rounds in flight: 1 = synchronous host "
                         "loop, 2 = the host plans and builds round r+1 "

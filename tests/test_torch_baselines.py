@@ -40,6 +40,8 @@ from repro_torch.data import synthetic as tsyn
 from repro_torch.models import cnn as tcnn
 from repro_torch.models.common import tree_leaves
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-4
 TOTAL = 8 * 4096     # the nominal dataset of test_simulation's comm check
 
@@ -263,18 +265,8 @@ def _learners(name):
         tad, tds, 1, device="cpu", init=_port(list(jl.g_dev) + list(jl.g_srv)))
 
 
-@pytest.fixture
-def one_thread():
-    """The port's steps on one CPU thread: the steps are small, and under
-    a parallel test run more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("name", list(tbase.REGISTRY))
-def test_learner_through_baseline_matches_jax(name, one_thread):
+def test_learner_through_baseline_matches_jax(name):
     """VGG-5 at 8x8, K=4, 40 simulated seconds: the Metrics and the
     learner's counts exact, every device's params and the global (and
     server) params at 1e-4."""

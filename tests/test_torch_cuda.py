@@ -11,7 +11,8 @@ against the CPU.
 
 It also holds the pipelined executor to what only the card shows: its
 handles keep their round across in-place updates, window 2 overlaps host
-work with the card's, and a round's dispatch makes no host sync.
+work with the card's, a round's dispatch makes no host sync, and the
+tiered store's spill and fill of a ring slot stay on the stream.
 
 It also runs the sim-mode FedOptima learner, and each baseline's learner,
 on the card against the CPU (``chip_smoke.sim_card_vs_cpu`` at a tiny
@@ -479,3 +480,42 @@ def test_cuda_baseline_learner_matches_cpu(protocol):
     assert out["counts"]["dev_samples"] > 0
     assert out["counts"]["aggregations"] > 0
     assert max(out["gaps"].values()) <= cs.SIM_PARAMS_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_cuda_spill_and_fill_stay_on_the_stream(quant):
+    """One ring slot's spill into the tiered store, a later in-place write
+    to that slot, and its fill back, enqueued behind 200 ms of queued work
+    under ``set_sync_debug_mode("error")``: no move waits for the card,
+    the spill holds the slot as the stream left it before the write, and
+    the fill puts it back (bit for bit in float32, within max|x|/254 in
+    int8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: streams and pinned copies")
+    from repro_torch.memory import ActivationStore
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ring = {"acts": torch.randn(2, 4, 64, 32, device="cuda", generator=gen),
+            "labels": torch.randint(0, 100, (2, 4, 64), device="cuda",
+                                    generator=gen)}
+    state = {"act_buf": ring}
+    want = {k: v[1].clone() for k, v in ring.items()}
+    store = ActivationStore(1, quant=quant)
+    torch.cuda._sleep(_sleep_cycles(200))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        store.spill(0, TF.gather_act_slot(state, 1))
+        for v in ring.values():
+            v[1].zero_()                  # the next round's in-place write
+        TF.scatter_act_slot(state, 1, store.fill(0))
+        waited = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert waited < 0.1, waited           # not behind the queued 200 ms
+    torch.cuda.synchronize()
+    assert torch.equal(ring["labels"][1], want["labels"])
+    err = float((ring["acts"][1] - want["acts"]).abs().max())
+    amax = float(want["acts"].abs().max())
+    assert err <= (amax / 254.0 + 1e-7 * amax if quant else 0.0), err
+    assert len(store) == 0 and store.n_fills == 1

@@ -32,6 +32,8 @@ from repro_torch.core import fedopt_step as TF
 from repro_torch.launch import train as ttrain
 from repro_torch.models.common import tree_leaves, tree_map
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-4
 G, H, B, S = 2, 2, 2, 16          # groups, micro-iterations, rows, seq
 KW = dict(l_split=1, n_groups=G, seq_len=S, per_group_batch=B * H, H=H,

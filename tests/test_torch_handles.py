@@ -14,6 +14,8 @@ import torch
 from repro_torch.core.handles import HandleRing, RoundHandle, snapshot_tree
 from repro_torch.models.common import tree_leaves
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 def _tree(seed=0):
     rng = np.random.default_rng(seed)

@@ -20,6 +20,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 jax.config.update("jax_enable_x64", False)
 
 FWD_TOL = 2e-5      # tests/test_kernels.py, f32

@@ -37,6 +37,8 @@ from repro_torch.models import mlp as tmlp
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.common import tree_map
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-4
 ARCH = "smollm-135m"
 MAMBA = "mamba2-780m"

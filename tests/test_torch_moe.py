@@ -21,6 +21,8 @@ from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import transformer as ttfm
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-5
 B, S = 2, 16
 # (d_model, d_ff, n_experts, top_k, activation, capacity factor)

@@ -19,6 +19,13 @@ command-r-plus-104b with it off.  Two rows run smollm in bfloat16 in both
 packages, held at the reference's bfloat16 tolerance, 2e-2.
 The batch's ``frontend`` is drawn from the seed here, not zeros as the
 drivers feed it, so the cross blocks and the encoder train on data.
+
+This file holds the harness (``_rounds``, ``_check_round``, ``_close``,
+``_tol_ratio``, ``_drive``), smollm's rows and the ``adamw`` witness (C4),
+the control plane's and ``train.main``'s checks; each other family's rows,
+witnesses and driver runs are in a file of its own,
+``tests/test_torch_round_<family>.py``, so that ``--dist loadfile``
+spreads them over the workers.
 """
 import dataclasses
 import functools
@@ -37,6 +44,8 @@ from repro_torch.convert import state_from_numpy, state_to_numpy
 from repro_torch.core import control_plane as tcp
 from repro_torch.core import fedopt_step as TF
 from repro_torch.launch import train as ttrain
+
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 BF16_TOL = 2e-2    # the reference's bfloat16 tolerance (tests/test_kernels.py)
@@ -137,33 +146,10 @@ def _rounds(arch, use_kernel, opts, perturb=None, resync=()):
             tstate = state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
 
 
-@pytest.mark.parametrize("arch,use_kernel,opts", [
-    ("smollm-135m", False, {}), ("smollm-135m", True, {}),
-    ("smollm-135m", False, dict(server_accum=True, pipeline_acts=False)),
-    ("mamba2-780m", False, {}), ("mamba2-780m", True, {}),
-    ("smollm-135m", False, dict(agg_compress=True)),
-    ("smollm-135m", False, dict(server_opt="adamw")),
-    ("smollm-135m", False, dict(remat=True)),
-    ("smollm-135m", False, dict(remat=False)),
-    ("qwen3-32b", False, {}), ("qwen3-32b", True, {}),
-    ("gemma2-27b", False, {}), ("gemma2-27b", True, {}),
-    ("command-r-plus-104b", False, {}),
-    ("llama-3.2-vision-90b", False, {}), ("llama-3.2-vision-90b", True, {}),
-    ("whisper-tiny", False, {}), ("whisper-tiny", True, {}),
-    ("qwen3-moe-235b-a22b", False, {}), ("qwen3-moe-235b-a22b", True, {}),
-    ("llama4-maverick-400b-a17b", False, {}),
-    ("llama4-maverick-400b-a17b", True, {}),
-    ("smollm-135m", False, dict(param_dtype="bfloat16")),
-    ("smollm-135m", True, dict(param_dtype="bfloat16")),
-    ("jamba-1.5-large-398b", False, {}), ("jamba-1.5-large-398b", True, {}),
-], ids=["plain", "kernel", "accum-nopipe", "mamba2-plain", "mamba2-kernel",
-        "agg-compress", "adamw", "remat-True", "remat-False", "qwen3-plain",
-        "qwen3-kernel", "gemma2-plain", "gemma2-kernel",
-        "command-r-plus-plain", "llama-vision-plain", "llama-vision-kernel",
-        "whisper-plain", "whisper-kernel", "qwen3-moe-plain",
-        "qwen3-moe-kernel", "llama4-plain", "llama4-kernel", "bf16-plain",
-        "bf16-kernel", "jamba-plain", "jamba-kernel"])
-def test_round_matches_jax(arch, use_kernel, opts):
+def _check_round(arch, use_kernel, opts):
+    """The body of every family's ``test_round_matches_jax``: both losses
+    and every state leaf at ``TOL`` (bfloat16: ``BF16_TOL``) after each
+    round, and where the untied head and the decoder live."""
     tol = BF16_TOL if opts.get("param_dtype") == "bfloat16" else TOL
     for r, tm, jm, tstate, jstate in _rounds(arch, use_kernel, opts):
         _close(tm, jm, f"round {r} metrics", tol)
@@ -176,6 +162,23 @@ def test_round_matches_jax(arch, use_kernel, opts):
     encdec = bool(cfg.n_decoder_layers)
     assert ("embed" in tstate["dev"]) != encdec
     assert ("dec_blocks" in tstate["srv"]) == encdec
+
+
+# smollm-135m's rows (``adamw`` last, so that its witness below shares the
+# JAX step's compile); the other families' rows are in
+# tests/test_torch_round_{ssd,dense,vision,whisper,moe,llama4,bf16,hybrid}.py
+# (one file per worker under --dist loadfile)
+@pytest.mark.parametrize("arch,use_kernel,opts", [
+    ("smollm-135m", False, {}), ("smollm-135m", True, {}),
+    ("smollm-135m", False, dict(server_accum=True, pipeline_acts=False)),
+    ("smollm-135m", False, dict(agg_compress=True)),
+    ("smollm-135m", False, dict(remat=True)),
+    ("smollm-135m", False, dict(remat=False)),
+    ("smollm-135m", False, dict(server_opt="adamw")),
+], ids=["plain", "kernel", "accum-nopipe", "agg-compress", "remat-True",
+        "remat-False", "adamw"])
+def test_round_matches_jax(arch, use_kernel, opts):
+    _check_round(arch, use_kernel, opts)
 
 
 def _embed_out_grads(srv, arch, jarch, acts, labels):
@@ -302,142 +305,6 @@ def _tol_ratio(got, want):
     return float(np.max(np.abs(got - want) / (TOL + TOL * np.abs(want))))
 
 
-def test_vision_ring_acts_gap_is_float32_roundoff():
-    """Why the ``llama-vision-kernel`` row of ``test_round_matches_jax``
-    misses 1e-4 on one leaf (ROADMAP C5): the ring's acts after round 2,
-    the output of smoke llama-vision's five-block device half (four
-    attention blocks and a cross block), by about 1.3x the tolerance.
-
-    Witnesses, on the row's data:
-    - both losses and every other state leaf agree at 1e-4 in all three
-      rounds, and the acts do after rounds 0 and 1;
-    - the port against itself, with one float32 ulp added to every element
-      of the init's device embed and nothing else changed, moves the same
-      leaf past 1e-4 too, and by more than half the gap to the JAX round:
-      at this depth the leaf carries float32's own rounding from the
-      embed's updates (each is scaled by the first RMSNorm's 1/rms, ~50 at
-      the embed's init scale) through five blocks.
-    """
-    arch = "llama-3.2-vision-90b"
-
-    def ulp_up(state):
-        e = state["dev"]["embed"]
-        e.copy_(torch.nextafter(e, torch.full_like(e, np.inf)))
-    ref_run = list(_rounds(arch, True, {}))
-    ulp_run = list(_rounds(arch, True, {}, perturb=ulp_up))
-    for r, tm, jm, tstate, jstate in ref_run:
-        _close(tm, jm, f"round {r} metrics")
-        acts = tstate["act_buf"].pop("acts"), jstate["act_buf"].pop("acts")
-        _close(tstate, jstate, f"round {r} state but the ring's acts")
-        if r < 2:
-            _close(*acts, f"round {r} ring acts")
-        worst = max((_tol_ratio(g, w), jax.tree_util.keystr(k)) for (k, w), g
-                    in zip(jax.tree_util.tree_flatten_with_path(jstate)[0],
-                           jax.tree.leaves(tstate)))
-        print(f"round {r}: ring acts {_tol_ratio(*acts):.3f} x TOL (max "
-              f"abs {np.abs(acts[0] - acts[1]).max():.3e}); the worst other"
-              f" leaf {worst[1]} {worst[0]:.3f} x TOL")
-    gap = _tol_ratio(*acts)
-    ulp = _tol_ratio(ulp_run[-1][3]["act_buf"]["acts"], acts[0])
-    print(f"round 2 ring acts: port vs JAX {gap:.3f} x TOL; port vs port "
-          f"with one ulp on the init embed {ulp:.3f} x TOL")
-    assert ulp > 1.0 and ulp > 0.5 * gap
-
-
-@pytest.mark.parametrize("use_kernel", [False, True],
-                         ids=["bf16-plain", "bf16-kernel"])
-def test_bf16_ring_acts_gap_is_bfloat16_roundoff(use_kernel):
-    """Why the ``bf16-plain`` and ``bf16-kernel`` rows of
-    ``test_round_matches_jax`` miss the reference's bfloat16 tolerance,
-    2e-2, on one leaf (ROADMAP C6): the ring's acts, from round 0 on.
-
-    Witnesses, on the rows' data:
-    - both losses and every other state leaf agree at 2e-2 in all three
-      rounds;
-    - the port against itself, with one bfloat16 ulp added to every
-      element of the init's device embed and nothing else changed, moves
-      the ring's acts further than the gap to the JAX round, every round:
-      bfloat16 keeps 8 bits, and the two packages round in different
-      places (XLA keeps a fused chain of elementwise ops in float32 and
-      rounds once; torch rounds after each op), so the acts carry
-      bfloat16's own rounding through the device half's updates.
-    """
-    opts = dict(param_dtype="bfloat16")
-
-    def ulp_up(state):
-        e = state["dev"]["embed"]
-        e.copy_(torch.nextafter(e, torch.full_like(e, np.inf)))
-
-    def ratio(got, want):
-        want = _f32(want)
-        return float(np.max(np.abs(got - want)
-                            / (BF16_TOL + BF16_TOL * np.abs(want))))
-    ulp_run = list(_rounds("smollm-135m", use_kernel, opts, perturb=ulp_up))
-    for (r, tm, jm, tstate, jstate), ulp in zip(
-            _rounds("smollm-135m", use_kernel, opts), ulp_run):
-        _close(tm, jm, f"round {r} metrics", BF16_TOL)
-        gap = ratio(tstate["act_buf"]["acts"], jstate["act_buf"]["acts"])
-        moved = ratio(ulp[3]["act_buf"]["acts"], tstate["act_buf"]["acts"])
-        del tstate["act_buf"]["acts"], jstate["act_buf"]["acts"]
-        _close(tstate, jstate, f"round {r} state but the ring's acts",
-               BF16_TOL)
-        print(f"round {r}: ring acts port vs JAX {gap:.3f} x tol; port vs "
-              f"port with one bf16 ulp on the init embed {moved:.3f} x tol")
-        assert moved > 1.0 and moved > gap
-
-
-def test_llama4_kernel_gap_is_a_router_near_tie(monkeypatch):
-    """Why the ``llama4-kernel`` row of ``test_round_matches_jax`` misses
-    1e-4 (ROADMAP C7): from round 1 on, d_loss and the device state are
-    off by far more than roundoff, because one token's top-1 router choice
-    differs between the packages.  llama4 routes each token to one expert,
-    so a flip swaps that token's whole FFN output.
-
-    Witnesses, on the row's data:
-    - round 0 agrees at 1e-4 on both losses and every leaf;
-    - in the first round whose d_loss misses 1e-4 (round 1), a token's two
-      best router probabilities are a few float32 ulps apart, so the
-      packages' last-bit differences after round 0 (a few hundredths of
-      the tolerance) decide its expert;
-    - each round the port runs from the JAX state it starts from agrees
-      with JAX's at 1e-4 on both losses and every leaf: the port computes
-      every round as the reference does.
-    """
-    from repro_torch.models import mlp as tmlp
-    arch, route = "llama4-maverick-400b-a17b", tmlp._top_k_route
-    margins = []       # per routing call: the top two probabilities
-
-    def record(params, cfg, xt):
-        with torch.no_grad():
-            probs = torch.softmax(xt.float() @ params["router"].float(), -1)
-            margins.append(torch.sort(probs, -1, descending=True)[0][:, :2])
-        return route(params, cfg, xt)
-    monkeypatch.setattr(tmlp, "_top_k_route", record)
-    by_round = []
-    for r, tm, jm, tstate, jstate in _rounds(arch, True, {}):
-        top2 = torch.cat(margins)
-        margins.clear()
-        gap = top2[:, 0] - top2[:, 1]
-        live = gap > 0                  # exact ties are the zero ring rows
-        i = int(torch.argmin(torch.where(live, gap, np.inf)))
-        p = np.float32(top2[i, 0])
-        by_round.append((_tol_ratio(tm["d_loss"], jm["d_loss"]),
-                         float(gap[i]) / float(np.spacing(p))))
-        if r == 0:
-            _close(tm, jm, "round 0 metrics")
-            _close(tstate, jstate, "round 0 state")
-    monkeypatch.undo()
-    resynced = list(_rounds(arch, True, {}, resync=(0, 1)))
-    for r, tm, jm, tstate, jstate in resynced:
-        _close(tm, jm, f"round {r} metrics from the JAX state")
-        _close(tstate, jstate, f"round {r} state from the JAX state")
-    print("per round: d_loss gap x TOL, the nearest router tie in ulps of "
-          f"its top probability: {by_round}")
-    missed = [ulps for gap, ulps in by_round if gap > 1.0]
-    if missed:                           # the round where the row misses
-        assert missed[0] <= 4.0          # holds a tie within a few ulps
-
-
 @pytest.mark.parametrize("omega,policy", [(1, "counter"), (2, "counter"),
                                           (3, "fifo")])
 def test_control_plane_plans_match_jax(omega, policy):
@@ -490,7 +357,7 @@ def test_driver_runs_rounds_with_retention(capsys):
 
 REFUSED = [  # flags, the error, what its message must name
     (["--window", "0"], ValueError, "window must be >= 1"),
-    (["--pool-cap", "1"], NotImplementedError, "A2, the tiered activation"),
+    (["--pool-cap", "-1"], ValueError, "pool_cap must be >= 0"),
     (["--ckpt-dir", "ckpt"], NotImplementedError, "A3, checkpoints"),
     # sim mode runs since A6a; its planes stay refused there too
     (["--mode", "sim", "--faults", "random"], NotImplementedError,
@@ -511,52 +378,16 @@ def test_driver_refuses_later_slices(flags, error, text):
         ttrain.main(SMOKE_ARGS + ["--rounds", "1"] + flags)
 
 
-def test_driver_runs_mamba2(capsys):
-    out = ttrain.main(SMOKE_ARGS + ["--rounds", "2", "--arch", "mamba2-780m",
-                                    "--use-kernel"])
-    assert len(out["history"]) == 2
-    assert all(np.isfinite(m[k]) for m in out["history"]
-               for k in ("d_loss", "s_loss"))
-
-
-@pytest.mark.parametrize("arch", ["qwen3-32b", "gemma2-27b",
-                                  "command-r-plus-104b"])
-def test_driver_runs_dense_attention_archs(arch):
+def _drive(arch, *flags):
+    """Two smoke rounds of ``arch`` through ``train.main`` with the kernel
+    ops (their plain versions on the CPU): finite losses.  Returns the
+    driver's result."""
     out = ttrain.main(SMOKE_ARGS + ["--rounds", "2", "--arch", arch,
-                                    "--use-kernel"])
+                                    "--use-kernel", *flags])
     assert len(out["history"]) == 2
     assert all(np.isfinite(m[k]) for m in out["history"]
                for k in ("d_loss", "s_loss"))
-
-
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
-def test_driver_runs_frontend_archs(arch):
-    """The driver feeds zero frontends, as the JAX driver does: whisper's
-    encoder then computes on zeros and its next-frame aux loss is exactly
-    0."""
-    out = ttrain.main(SMOKE_ARGS + ["--rounds", "2", "--arch", arch,
-                                    "--use-kernel", "--p-drop", "0.5"])
-    assert len(out["history"]) == 2
-    assert all(np.isfinite(m[k]) for m in out["history"]
-               for k in ("d_loss", "s_loss"))
-    if arch == "whisper-tiny":
-        assert all(m["d_loss"] == 0.0 for m in out["history"])
-    ring = out["state"]["act_buf"]
-    assert ("frontend" in ring) == (arch != "whisper-tiny")
-    assert ("tokens" in ring) == (arch == "whisper-tiny")
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
-                                  "llama4-maverick-400b-a17b"])
-def test_driver_runs_moe_archs(arch):
-    """The MoE archs through ``train.main``, with churn: the load-balance
-    loss is in both losses, which stay finite."""
-    out = ttrain.main(SMOKE_ARGS + ["--rounds", "2", "--arch", arch,
-                                    "--use-kernel", "--p-drop", "0.5"])
-    assert len(out["history"]) == 2
-    assert all(np.isfinite(m[k]) for m in out["history"]
-               for k in ("d_loss", "s_loss"))
-    assert "we_down" in out["state"]["srv"]["blocks"][0]["ffn"]
+    return out
 
 
 def test_driver_refuses_other_archs():

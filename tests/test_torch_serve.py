@@ -35,6 +35,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as ttfm
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-4
 ARCHS = sorted(treg.ARCHS)
 KERNEL_ARCHS = ["smollm-135m", "mamba2-780m", "jamba-1.5-large-398b"]

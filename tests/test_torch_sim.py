@@ -43,6 +43,8 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.models import text_classifier as ttext
 from repro_torch.models.common import tree_leaves, tree_map
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 TOL = 1e-4
 B = 4
 
@@ -470,9 +472,11 @@ def test_sim_mode_refuses_later_flags(flags, item):
 
 
 def test_pool_cap_refused_on_the_pod_path_only():
-    with pytest.raises(NotImplementedError, match="A2, the tiered"):
-        tcp.ControlPlane(2, 1, pool_cap=1)
-    with pytest.raises(NotImplementedError, match="A2, the tiered"):
-        ttrain.main(["--device", "cpu", "--rounds", "1", "--pool-cap", "1"])
+    """Since the tiered store (A7.1) the pod path takes a pool too, in
+    slots (ω·G + pool·G flow units); both paths refuse a negative one."""
+    cp = tcp.ControlPlane(2, 1, pool_cap=1)
+    assert (cp.flow.cap, cp.memory_summary()["spills"]) == (4, 0)
+    with pytest.raises(ValueError, match="pool_cap must be >= 0"):
+        ttrain.main(["--device", "cpu", "--rounds", "1", "--pool-cap", "-1"])
     cp = tcp.ControlPlane.for_sim(3, 2, pool_cap=2)
     assert (cp.flow.cap, cp.memory_summary()["spills"]) == (4, 0)

@@ -24,6 +24,8 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd as ssd_k
 from repro_torch.models import mamba as tmamba
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 jax.config.update("jax_enable_x64", False)
 
 FWD_TOL = 5e-4      # tests/test_kernels.py, SSD

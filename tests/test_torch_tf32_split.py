@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.kernels import ref as tref
 
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
