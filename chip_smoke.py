@@ -80,8 +80,8 @@ exits non-zero:
    The driver feeds zero frontends, as the JAX driver does, so whisper's
    device loss is exactly 0 on both paths.
 5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
-   three rounds at windows 1 and 2: bit-identical histories and final
-   params, and a dropped group must have been retired (gathered from the
+   ``CHURN_ROUNDS`` rounds at windows 1 and 2: bit-identical histories and
+   final params, and a dropped group must have been retired (gathered from the
    live state at a boundary) in both runs.
 6. serving (``SERVE``), run right after each served path's driver: smollm,
    mamba2 and whisper whole, jamba at phase 4c's cuts, each from its
@@ -148,6 +148,24 @@ exits non-zero:
    bit-identical.  Then one slot's spill and fill on the card, in float32
    and int8 (``STORE_TIMED`` pairs, CUDA events; the host's enqueue time
    beside them), the filled slot against the one spilled.
+10. fleet — the fleet plane (``repro_torch.fleet``): (a) smollm-135m's
+   main path (full width and depth, G=4, batch 8, H=4, seq 1024, l_split
+   3, ω=1, the kernels) through ``run_pod`` under ``--fleet-trace weibull
+   --fleet-tiers low:3,high:1 --selection refl:0.5`` (``FLEET_FLAGS``) for
+   ``FLEET_ROUNDS`` rounds at windows 1 and 2: histories and final params
+   bit-identical, at least one roster event in the elastic registry, each
+   round's cohort at most half (rounded up) of the available groups, the
+   tier-seeded produce and read patterns printed and not uniform, the
+   kernels launched as reckoned (156 a round per attention kernel, as in
+   phase 4).  (b) ``run_sim`` on the card under ``--fleet-trace flaky
+   --fleet-tiers low,mid,high,premium --selection score:0.5``
+   (``FLEET_SIM_FLAGS``; 8 devices, 300 simulated s): its event metrics
+   equal, bit for bit, to the same ``simulate_fedoptima`` call on the host
+   with no learner.  (c) FedAsync and SplitFed with their VGG-5 learners
+   on the card under one flaky trace at phase 8 (c)'s size (K=4, 20
+   simulated s): every ``Metrics`` field, the registry's contents
+   included, equal to the host run with no learner, the hook counts equal
+   to the simulator's.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -283,12 +301,17 @@ SERVE_TOL = 1e-3
 SERVE_DECODE_TOL = 1e-4
 # Phase 9, the tiered store: smollm's main path with a ring of ω=2 slots and
 # a host pool of 2 (``--pool-cap 2``); the server reads nothing for
-# STORE_STALL rounds, then drains for as many.  One slot holds 8 x 1024 x
-# 576 float32 acts (18.87 MB) and int64 labels (65.5 kB).  STORE_TIMED spill
-# and fill pairs of one slot are timed after two untimed ones.
+# STORE_STALL rounds, then drains for as many (two stalled rounds spill and
+# fill as many slots as three: 2 and 2, 16 contributions buffered; cut from
+# 3 to make room for phase 10).  One slot holds 8 x 1024 x 576 float32
+# acts (18.87 MB) and int64 labels (65.5 kB).  STORE_TIMED spill and fill
+# pairs of one slot are timed after two untimed ones.
 STORE_FLAGS = ["--omega", "2", "--pool-cap", "2"]
-STORE_STALL = 3
+STORE_STALL = 2
 STORE_TIMED = 10
+# Phase 5: rounds of each churn run (seed 0 retires a group at the second
+# round's boundary; cut from 3 to make room for phase 10).
+CHURN_ROUNDS = 2
 # Params after two rounds, kernels vs plain: max |difference| (phase 4).
 # The paths read 2.384e-07 on an H100 (one float32 ulp at |p| in [2, 4)),
 # whisper-tiny 8.792e-07; a wrong kernel moves params by lr_d (0.05) times
@@ -1181,7 +1204,8 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
     per_round = [tokens / completion_gap_s(a, b)
                  for a, b in zip(stats, stats[1:])]
     tag = f"[drive] {cfg.arch.name} --window {args.window}" + \
-        (f" --p-drop {args.p_drop}" if args.p_drop else "")
+        (f" --p-drop {args.p_drop}" if args.p_drop else "") + \
+        (f" --fleet-trace {args.fleet_trace}" if args.fleet_trace else "")
     print(f"{tag}: history "
           f"{[(m['d_loss'], m['s_loss']) for m in out['history']]}")
     print(f"{tag}: steady {out['steady_tok_s']:,.1f} tok/s (rounds 2-"
@@ -1204,25 +1228,29 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
     return {"history": out["history"], "steady_tok_s": out["steady_tok_s"],
             "peak_bytes": peak, "launches": launches, "executor": xs,
             "memory": out["memory"], "round_stats": stats,
-            "final": final, "state": out["state"] if keep_state else None}
+            "fleet": out["fleet"], "consumed": out["consumed"],
+            "final": final,
+            "state": out["state"] if keep_state else None}
 
 
 def phase_churn(torch, counters) -> None:
     """smollm-135m at full width and full depth (30 layers) under churn
-    (--p-drop 0.3, 3 rounds) at windows 1 and 2: the histories and the
-    final params must be bit-identical, and both runs must have retired a
-    dropped group."""
+    (--p-drop 0.3, ``CHURN_ROUNDS`` rounds) at windows 1 and 2: the
+    histories and the final params must be bit-identical, and both runs
+    must have retired a dropped group."""
     from repro_torch.models.common import tree_leaves
     t0 = time.perf_counter()
     runs = {w: drive(torch, *main_setup("smollm-135m", [
-        "--rounds", "3", "--window", str(w), "--p-drop", "0.3"]), counters,
+        "--rounds", str(CHURN_ROUNDS), "--window", str(w), "--p-drop",
+        "0.3"]), counters,
         keep_final=True) for w in (1, 2)}
     same_hist = runs[1]["history"] == runs[2]["history"]
     same_params = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(runs[1]["final"]), tree_leaves(runs[2]["final"])))
     retention = {w: runs[w]["executor"]["retention"] for w in (1, 2)}
-    print(f"[churn] smollm-135m full width, 30 layers, --p-drop 0.3, 3 "
-          f"rounds: windows 1 and 2 histories bit-identical {same_hist}, "
+    print(f"[churn] smollm-135m full width, 30 layers, --p-drop 0.3, "
+          f"{CHURN_ROUNDS} rounds: windows 1 and 2 histories bit-identical "
+          f"{same_hist}, "
           f"final params bit-identical {same_params}; retention {retention},"
           f" window 2 handle_bytes_peak "
           f"{runs[2]['executor']['handle_bytes_peak']}, peak memory "
@@ -1738,14 +1766,16 @@ def _sim_datasets(cfg, K, samples=SIM_SAMPLES, seed=0):
 
 
 def sim_learner_run(torch, adapter, datasets, l_split, device, duration,
-                    init=None, hooks=None, lr=0.05, protocol="fedoptima"):
+                    init=None, hooks=None, lr=0.05, protocol="fedoptima",
+                    fleet=None):
     """A protocol's learner through its simulator over
     ``heterogeneous_cluster(K)`` at H=10: ``"fedoptima"``'s through
     ``simulate_fedoptima`` (ω=8, pool 8), a baseline's (``baselines.
     REGISTRY``) through its own, with ``FullModelLearner`` or
     ``SplitLearner``.  ``init``: (the full model's params, aux params),
-    or None to draw them from seed 0.  Returns (Metrics, the ControlPlane
-    or None, learner)."""
+    or None to draw them from seed 0.  ``fleet``: a ``FleetTrace`` for a
+    baseline's run.  Returns (Metrics, the ControlPlane or None,
+    learner)."""
     from repro_torch.core.baselines import REGISTRY
     from repro_torch.core.control_plane import ControlPlane
     from repro_torch.core.learning import (FedOptimaLearner,
@@ -1770,19 +1800,34 @@ def sim_learner_run(torch, adapter, datasets, l_split, device, duration,
         if protocol in FULL_MODEL else \
         SplitLearner(adapter, datasets, l_split, **kw)
     m = REGISTRY[protocol](model, cluster, duration=duration, H=10,
-                           hooks=learner if hooks is None else hooks(learner))
+                           hooks=learner if hooks is None else hooks(learner),
+                           fleet=fleet)
     return m, None, learner
 
 
-def _sim_counts(m, control, learner) -> dict:
-    """Everything the run counted, learner-independent and learner-side."""
+def _metrics_view(m) -> dict:
+    """Every ``Metrics`` field as plain values (the profiles by their
+    summary, the elastic registry by its contents) and the derived
+    figures."""
     import numpy as np
     out = {}
     for f in dataclasses.fields(m):
         v = getattr(m, f.name)
-        out[f.name] = v.summary() if f.name == "profiles" and v is not None \
-            else v.tolist() if isinstance(v, np.ndarray) else v
+        if f.name == "registry" and v is not None:
+            v = (v._next_id, [dataclasses.asdict(i)
+                              for i in v.devices.values()])
+        elif f.name == "profiles" and v is not None:
+            v = v.summary()
+        elif isinstance(v, np.ndarray):
+            v = v.tolist()
+        out[f.name] = v
     out.update(steady=m.steady_summary(), balance=m.contribution_balance())
+    return out
+
+
+def _sim_counts(m, control, learner) -> dict:
+    """Everything the run counted, learner-independent and learner-side."""
+    out = _metrics_view(m)
     if control is None:     # a baseline
         out["hooks"] = (learner.dev_steps, learner.versions, learner.version)
         return out
@@ -2264,6 +2309,223 @@ def phase_baselines(torch, counters) -> dict:
     return {"table2": table2, "card_vs_cpu": card_cpu, "models": models}
 
 
+# ---------------------------------------------------------------------------
+# 10. the fleet plane
+# ---------------------------------------------------------------------------
+
+# (a): smollm's main path under a Weibull on/off trace (one tick a round;
+# up ~rounds/4, down ~rounds/8 at the median scale), a 3:1 low:high mix of
+# capability tiers seeding the straggler profiles, and REFL selection of
+# half the available groups
+FLEET_FLAGS = ["--fleet-trace", "weibull", "--fleet-tiers", "low:3,high:1",
+               "--selection", "refl:0.5"]
+FLEET_ROUNDS = 4
+# (b): run_sim's defaults (8 devices, 300 simulated s) under a flaky trace
+# over a fleet sampled from all four tiers, score selection of half
+FLEET_SIM_FLAGS = ["--mode", "sim", "--fleet-trace", "flaky",
+                   "--fleet-tiers", "low,mid,high,premium",
+                   "--selection", "score:0.5"]
+# (c): phase 8 (c)'s size (VGG-5 32x32, K=4, 20 simulated s) under one
+# flaky trace of 12 ticks
+FLEET_BASELINES = ("fedasync", "splitfed")
+FLEET_TRACE = dict(p_drop=0.3, seed=0)
+
+
+def fleet_pod(torch, counters) -> dict:
+    """(a): smollm-135m's main path through ``run_pod`` under
+    ``FLEET_FLAGS`` at windows 1 and 2."""
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    runs = {}
+    for w in (1, 2):
+        args, cfg = main_setup("smollm-135m", [
+            "--rounds", str(FLEET_ROUNDS), "--window", str(w),
+            *FLEET_FLAGS])
+        runs[w] = drive(torch, args, cfg, counters, keep_final=True)
+    per_round, want = launches_per_round(cfg, counters)
+    want_total = {k: n * FLEET_ROUNDS for k, n in want.items()}
+    fleet = runs[2]["fleet"]
+    same_hist = runs[1]["history"] == runs[2]["history"]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(runs[1]["final"]), tree_leaves(runs[2]["final"])))
+    same_roster = all(runs[1]["fleet"][k] == fleet[k] for k in
+                      ("available", "cohorts", "roster_events"))
+    halves = [(len(c), len(a)) for a, c in zip(fleet["available"],
+                                               fleet["cohorts"])]
+    restricted = all(c <= math.ceil(a / 2) for c, a in halves)
+    uniform = fleet["produce_per_round"] == [cfg.H] * cfg.n_groups and \
+        fleet["reads_per_round"] == cfg.H
+    attention = {k: n // FLEET_ROUNDS for k, n in
+                 runs[2]["launches"].items() if k.startswith("fa_")}
+    print(f"[fleet] (a) smollm-135m full width, 30 layers, "
+          f"{' '.join(FLEET_FLAGS)}, {FLEET_ROUNDS} rounds: windows 1 and 2 "
+          f"histories bit-identical {same_hist}, final params bit-identical "
+          f"{same_params}, rosters equal {same_roster} | available "
+          f"{fleet['available']}, cohorts {fleet['cohorts']} (cohort/"
+          f"available {halves}), roster events {fleet['roster_events']}, "
+          f"selection {fleet['selection']} | tier-seeded emissions per round "
+          f"{fleet['produce_per_round']} of H={cfg.H}, server reads "
+          f"{fleet['reads_per_round']}/{cfg.H} | consumed "
+          f"{runs[2]['consumed']} | "
+          f"attention launches a round {attention} (phase 4: {per_round}) | "
+          f"retention {runs[2]['executor']['retention']} | peak memory "
+          f"{runs[1]['peak_bytes'] / 2**30:.2f} / "
+          f"{runs[2]['peak_bytes'] / 2**30:.2f} GiB | "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    for w, run in runs.items():
+        for r, m in enumerate(run["history"]):
+            if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
+                raise AssertionError(f"fleet window {w} round {r + 1}: "
+                                     f"non-finite loss {m}")
+        if run["launches"] != want_total:
+            raise AssertionError(f"fleet window {w}: launches "
+                                 f"{run['launches']}, want {want_total}")
+    if not (same_hist and same_params and same_roster):
+        raise AssertionError("fleet: windows 1 and 2 differ")
+    if fleet["roster_events"] < 1:
+        raise AssertionError("fleet: no roster event in the registry")
+    if not restricted:
+        raise AssertionError(f"fleet: a cohort past half the available "
+                             f"groups: {halves}")
+    if uniform:
+        raise AssertionError("fleet: the tier-seeded plans are uniform")
+    return {"runs": runs, "attention_per_round": attention}
+
+
+def fleet_sim(torch) -> dict:
+    """(b): ``run_sim`` on the card under ``FLEET_SIM_FLAGS``; the same
+    ``simulate_fedoptima`` call on the host with no learner must give the
+    same event metrics, bit for bit."""
+    from repro_torch.core.control_plane import ControlPlane
+    from repro_torch.core.executor import StragglerProfiles
+    from repro_torch.core.simulation import SimModel, simulate_fedoptima
+    from repro_torch.fleet import sample_cluster
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(FLEET_SIM_FLAGS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train.run_sim(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    omega, H = 8, 10                    # run_sim's defaults, pool = omega
+    cluster = sample_cluster(args.devices, args.fleet_tiers, seed=args.seed)
+    fleet = train._fleet_trace(args, args.devices, args.duration,
+                               interval=max(args.duration / 12.0, 1.0),
+                               bw=cluster.dev_bw)
+    control = ControlPlane.for_sim(args.devices, omega, policy=args.policy,
+                                   max_delay=args.max_delay, pool_cap=omega)
+    profiles = StragglerProfiles(args.devices)
+    m = simulate_fedoptima(SimModel(**SIM_COSTS), cluster,
+                           duration=args.duration, omega=omega, H=H,
+                           policy=args.policy, max_delay=args.max_delay,
+                           pool_cap=omega, seed=args.seed, fleet=fleet,
+                           selection=args.selection, control=control,
+                           profiles=profiles)
+    host = {"srv_idle": m.srv_idle_frac, "dev_idle": m.dev_idle_frac,
+            "throughput": m.throughput, "profiles": profiles.summary(),
+            "produce_per_round": profiles.produce(H).sum(axis=0).tolist(),
+            "reads_per_round": int(profiles.reads(H).sum()),
+            "memory": control.memory_summary(),
+            "consumed": m.dev_consumed.tolist(),
+            "contribution_balance": m.contribution_balance(),
+            "steady": m.steady_summary(),
+            "registry": m.to_registry().snapshot()}
+    diff = [k for k in host if out[k] != host[k]]
+    events = sum(i.absences for i in m.registry.devices.values())
+    print(f"[fleet] (b) run_sim {' '.join(FLEET_SIM_FLAGS[2:])} on "
+          f"{args.device}: {args.devices} devices, {args.duration} s "
+          f"simulated: srv idle {out['srv_idle']:.4f} dev idle "
+          f"{out['dev_idle']:.4f} throughput {out['throughput']:.2f} "
+          f"samples/s accuracy {out['accuracy']:.4f} | consumed "
+          f"{out['consumed']} | roster events {events}, active at the end "
+          f"{len(m.registry.active_ids)}/{args.devices} | event metrics "
+          f"equal to the host run with no learner: {not diff} | wall "
+          f"{wall:.3f} s", flush=True)
+    if diff:
+        raise AssertionError(f"fleet: run_sim on the card differs from the "
+                             f"host run in {diff}")
+    if events < 1:
+        raise AssertionError("fleet: run_sim saw no roster event")
+    return {"run_sim": out, "wall_s": wall}
+
+
+def fleet_baselines(torch) -> dict:
+    """(c): ``FLEET_BASELINES`` with their VGG-5 learners on the card under
+    one flaky trace (K=4, 20 simulated s); every ``Metrics`` field equal to
+    the host run with no learner, the hook counts equal to the
+    simulator's, losses finite."""
+    from repro_torch.core.baselines import REGISTRY
+    from repro_torch.core.learning import ModelAdapter
+    from repro_torch.core.simulation import SimModel, heterogeneous_cluster
+    from repro_torch.fleet import flaky_trace
+    from repro_torch.models import cnn
+    img, K, duration = (SIM_CARD_CPU[k] for k in ("img", "K", "duration"))
+    cfg = cnn.vgg5_config(img_size=img)
+    adapter = ModelAdapter(cnn, cfg)
+    trace = flaky_trace(K, duration, interval=duration / 12, **FLEET_TRACE)
+    leaves = int((trace.active[:-1] & ~trace.active[1:]).sum())
+    out = {}
+    for protocol in FLEET_BASELINES:
+        timed = {}
+
+        def hooks(learner):
+            timed["hooks"] = TimedHooks(torch, learner)
+            return timed["hooks"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, _, learner = sim_learner_run(
+            torch, adapter, _sim_datasets(cfg, K), 1, "cuda", duration,
+            hooks=hooks, protocol=protocol, fleet=trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        th = timed["hooks"]
+        _check_hook_counts(f"fleet {protocol}", m, None, learner, th,
+                           protocol)
+        if not bool(torch.isfinite(torch.stack(th.losses)).all()):
+            raise AssertionError(f"fleet {protocol}: a loss is not finite")
+        host = REGISTRY[protocol](SimModel(**SIM_COSTS),
+                                  heterogeneous_cluster(K),
+                                  duration=duration, H=10, fleet=trace)
+        a, b = _metrics_view(m), _metrics_view(host)
+        diff = [k for k in b if a[k] != b[k]]
+        n = {k: len(v) for k, v in th.ms.items()}
+        print(f"[fleet] (c) {protocol}: VGG-5 {img}x{img}, K={K}, "
+              f"{duration} s simulated, flaky trace (p_drop "
+              f"{FLEET_TRACE['p_drop']}, {trace.T} ticks, {leaves} leaves): "
+              f"{n['device_iter']} device / {n['server_train']} server "
+              f"steps / {n['aggregate'] + n['sync_aggregate']} "
+              f"aggregations, counts equal to the Metrics', losses finite | "
+              f"dev idle {m.dev_idle_frac:.4f} srv idle "
+              f"{m.srv_idle_frac:.4f} throughput {m.throughput:.2f} | every "
+              f"Metrics field equal to the host run with no learner: "
+              f"{not diff} | wall {wall:.2f} s", flush=True)
+        if diff:
+            raise AssertionError(f"fleet {protocol}: the card run differs "
+                                 f"from the host run in {diff}")
+        out[protocol] = {"wall_s": wall, "calls": n}
+    return out
+
+
+def phase_fleet(torch, counters) -> dict:
+    """(a) the pod round under a trace, tiers and selection; (b) run_sim
+    and (c) two baselines under traces, their event metrics against the
+    host's.  (b) and (c) run no kernel of the five: their counts must stay
+    0."""
+    t0 = time.perf_counter()
+    pod = fleet_pod(torch, counters)
+    for c in counters:
+        c.reset_launches()
+    sim = fleet_sim(torch)
+    base = fleet_baselines(torch)
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    if any(launches.values()):
+        raise AssertionError(f"fleet: a kernel of the five ran in (b) or "
+                             f"(c): {launches}")
+    print(f"[fleet] kernel launches over (b) and (c): {launches} | phase "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    return {"pod": pod, "sim": sim, "baselines": base}
+
+
 def _sim_describe(cfg) -> str:
     if hasattr(cfg, "img_size"):
         return (f"{cfg.img_size}x{cfg.img_size}x{cfg.in_channels}, "
@@ -2320,6 +2582,9 @@ def main() -> int:
     t1 = time.perf_counter()
     store = phase_store(torch, (fa, ssd_k))
     print(f"[time] tiered store: {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    fleet = phase_fleet(torch, (fa, ssd_k))
+    print(f"[time] fleet: {time.perf_counter() - t1:.0f} s", flush=True)
     served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
               if run["serve"] is not None}
     kernels = []
@@ -2340,7 +2605,9 @@ def main() -> int:
                             **{p: run["launches"][name]
                                for p, run in {**paths, **wide}.items()},
                             "smollm-135m tiered store":
-                                store["launches"][name]},
+                                store["launches"][name],
+                            "smollm-135m fleet":
+                                fleet["pod"]["runs"][2]["launches"][name]},
                         "serve_launches": {p: n[name]
                                            for p, n in served.items()}})
         if name.startswith("ssd_"):

@@ -12,28 +12,34 @@ like-for-like.  Server compute is serialized (single accelerator); links
 are full-duplex.  hooks objects (optional) drive real training in event
 order — see ``core/learning.py`` (``FullModelLearner``, ``SplitLearner``).
 
-A copy of the JAX package's ``core/baselines.py`` on the path with no plane
-attached: the same events, pushed in the same order (``Sim`` breaks ties
-in time by push order, so one push more, fewer or out of order would
-reorder every later tie), and the same metrics, bit for bit.  The
-``churn=``, ``fleet=``, ``faults=`` and ``fault_gate=`` planes are refused
-with the ROADMAP item that brings them (A7), as ``simulate_fedoptima``
-refuses them; their sanitizer and trace emits come with them.  The
-departure state (``active``, ``epoch``, ``running``) and its guards are
-kept as the reference has them: with no plane no device ever leaves, so
-they never fire.  ``seed`` is unused, as in the reference.
+Every protocol accepts ``fleet=`` (a ``repro_torch.fleet.FleetTrace``):
+device join/leave and bandwidth follow the trace's tick grid through the
+single trace-event API (``repro_torch.fleet.traces.install_fleet``), so
+FedOptima and all six baselines can be compared under one identical
+device population.  ``churn=`` ChurnModels are materialised onto the same
+grid (``FleetTrace.from_churn``: identical draws, bit for bit).
+
+A copy of the JAX package's ``core/baselines.py`` with its fleet plane:
+the same events, pushed in the same order (``Sim`` breaks ties in time by
+push order, so one push more, fewer or out of order would reorder every
+later tie), and the same metrics, bit for bit.  The ``faults=`` and
+``fault_gate=`` planes are refused with the ROADMAP item that brings them
+(A7), as ``simulate_fedoptima`` refuses them; the sanitizer and trace
+emits come with the sanitizer and telemetry items.  ``seed`` is unused,
+as in the reference.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.fleet.traces import install_fleet, resolve_fleet
 
 from . import simulation
 from .simulation import Metrics, Sim, SimCluster, SimModel, refuse_later
 
 #: baseline arguments whose planes come with ROADMAP item A7:
 #: argument -> (the value that means "off", the item that brings it).
-LATER = {name: simulation.LATER[name]
-         for name in ("churn", "fleet", "faults", "fault_gate")}
+LATER = {name: simulation.LATER[name] for name in ("faults", "fault_gate")}
 
 
 # ---------------------------------------------------------------------------
@@ -44,14 +50,17 @@ def simulate_classic_fl(model: SimModel, cluster: SimCluster, *,
                         duration: float, H: int = 10, hooks=None,
                         churn=None, fleet=None, seed: int = 0,
                         faults=None, fault_gate=None) -> Metrics:
-    refuse_later(LATER, "simulate_classic_fl", churn=churn, fleet=fleet,
-                 faults=faults, fault_gate=fault_gate)
+    refuse_later(LATER, "simulate_classic_fl", faults=faults,
+                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
     t_iter = [3 * model.full_fwd_flops / cluster.dev_flops[k] for k in range(K)]
+    trace = resolve_fleet(fleet, churn, cluster, duration)
     active = np.ones(K, bool)
     bw = cluster.dev_bw.astype(float).copy()
+    if trace is not None:
+        trace.apply(active, bw)
     pending = {"n": 0}
 
     def start_round():
@@ -101,6 +110,7 @@ def simulate_classic_fl(model: SimModel, cluster: SimCluster, *,
                 start_round()
             sim.after(dt, agg_done)
 
+    install_fleet(sim, trace, active, bw)
     start_round()
     sim.run(duration)
     return m
@@ -110,21 +120,32 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
                          H, buffer_size, hooks, churn, fleet, seed,
                          faults=None, fault_gate=None) -> Metrics:
     """Shared core of FedAsync (buffer_size=1) and FedBuff (buffer_size=Z)."""
-    refuse_later(LATER, "_simulate_async_full", churn=churn, fleet=fleet,
-                 faults=faults, fault_gate=fault_gate)
+    refuse_later(LATER, "_simulate_async_full", faults=faults,
+                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
     t_iter = [3 * model.full_fwd_flops / cluster.dev_flops[k] for k in range(K)]
+    trace = resolve_fleet(fleet, churn, cluster, duration)
     active = np.ones(K, bool)
     bw = cluster.dev_bw.astype(float).copy()
+    if trace is not None:
+        trace.apply(active, bw)
     srv = {"busy": False, "buffer": 0}
     queue: list[tuple] = []          # (device, chain epoch)
-    # per-device chain discipline (as in simulate_fedoptima): a departure
-    # (A7's planes) bumps the epoch so the dead chain's pending callbacks
-    # cannot revive beside the chain a rejoin starts
+    # per-device chain discipline (as in simulate_fedoptima): a leave
+    # bumps the epoch so the dead chain's pending callbacks can't revive
+    # alongside the chain on_rejoin starts — without it one off->on flap
+    # inside an iteration forks two concurrent chains forever
     running = np.zeros(K, bool)
     epoch = np.zeros(K, np.int64)
+
+    def on_leave(k):
+        running[k] = False
+        epoch[k] += 1
+
+    def on_rejoin(k):
+        dev_round(k)
 
     def dev_round(k):
         if not active[k] or running[k]:
@@ -189,6 +210,8 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
         running[k] = False
         dev_round(k)
 
+    install_fleet(sim, trace, active, bw, on_leave=on_leave,
+                  on_rejoin=on_rejoin)
     for k in range(K):
         dev_round(k)
     sim.run(duration)
@@ -228,22 +251,33 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
     pipeline=True  -> PiPar (device overlaps next fwd while waiting)
     sync_agg=False -> OAFL (async aggregation at round end, no barrier)
     """
-    refuse_later(LATER, "_simulate_split", churn=churn, fleet=fleet,
-                 faults=faults, fault_gate=fault_gate)
+    refuse_later(LATER, "_simulate_split", faults=faults,
+                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
+    trace = resolve_fleet(fleet, churn, cluster, duration)
     active = np.ones(K, bool)
     bw = cluster.dev_bw.astype(float).copy()
+    if trace is not None:
+        trace.apply(active, bw)
     srv = {"busy": False}
     srv_queue: list[tuple] = []
     barrier = {"n": 0}
     t_fwd = [model.dev_fwd_flops / cluster.dev_flops[k] for k in range(K)]
     t_bwd = [model.dev_bwd_flops / cluster.dev_flops[k] for k in range(K)]
-    # chain discipline for OAFL's restarts, as in _simulate_async_full;
-    # under sync_agg the barrier owns round starts and the epochs stay 0
+    # chain discipline for the async (OAFL) restart path, mirroring
+    # _simulate_async_full; under sync_agg there is no on_leave so epochs
+    # stay 0 and the guards are inert (the barrier replays old behavior)
     running = np.zeros(K, bool)
     epoch = np.zeros(K, np.int64)
+
+    def on_leave(k):
+        running[k] = False
+        epoch[k] += 1
+
+    def on_rejoin(k):
+        dev_round(k)
 
     def dev_round(k):
         if not active[k] or running[k]:
@@ -385,6 +419,9 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
             m.bytes_down += model.dev_model_bytes
             sim.after(tx, dev_round, k)
 
+    install_fleet(sim, trace, active, bw,
+                  on_leave=None if sync_agg else on_leave,
+                  on_rejoin=None if sync_agg else on_rejoin)
     if sync_agg:
         start_round()
     else:

@@ -29,7 +29,9 @@ It also owns the host-card consistency duties of the round loop:
   dispatch; a rejoining group's rows are scattered back.  Both read and
   write the live state: at a boundary the next round is not dispatched
   yet, so its values ARE the previous round's output at any window (the
-  gather waits for that round, as the reference's handle copy does).
+  gather waits for that round, as the reference's handle copy does).  An
+  ``ElasticRegistry`` (``registry=``) mirrors each retirement as a leave
+  and each restore as a rejoin, with the round index as the timestamp.
 * **the tiered activation store** — a plan's ``fill`` and ``spill`` moves
   run at the boundary, after retention and before the batch is built:
   pooled slots go back into free ring slots, then victim slots go to the
@@ -43,8 +45,8 @@ The cap invariant (ω ring slots, ω + pool_cap in flow units) raises
 ``RuntimeError`` with the ring-slot and pool occupancy.
 
 The torch form of the JAX package's ``core/executor.py``.  Still to come:
-the fault and fleet planes (``faults``, ``registry``) and the trace and
-sanitizer emits; the store's advisory prefetch is not ported.
+the fault plane (``faults``) and the trace and sanitizer emits; the
+store's advisory prefetch is not ported.
 """
 from __future__ import annotations
 
@@ -289,6 +291,10 @@ class RoundExecutor:
         ``gather(state, g) -> params`` (host copies) and
         ``scatter(state, g, params) -> state``; see
         ``fedopt_step.gather_group_state`` / ``scatter_group_state``.
+    registry : ElasticRegistry | None
+        Optional roster mirror (``repro_torch.runtime.ElasticRegistry``):
+        drops and rejoins are recorded with the round index as the
+        timestamp.
     store / gather_slot / scatter_slot : tiered activation store wiring
         ``store`` is a ``repro_torch.memory.ActivationStore`` (the host
         spill pool); ``gather_slot(state, s) -> payload`` and
@@ -303,8 +309,8 @@ class RoundExecutor:
     """
 
     def __init__(self, step, cplane, *, window: int = 1, profiles=None,
-                 gather=None, scatter=None, store=None, gather_slot=None,
-                 scatter_slot=None, metrics=None):
+                 gather=None, scatter=None, registry=None, store=None,
+                 gather_slot=None, scatter_slot=None, metrics=None):
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.step = step
@@ -313,6 +319,7 @@ class RoundExecutor:
         self.profiles = profiles
         self.gather = gather
         self.scatter = scatter
+        self.registry = registry
         self.store = store
         self.gather_slot = gather_slot
         self.scatter_slot = scatter_slot
@@ -489,6 +496,8 @@ class RoundExecutor:
         for g in plan.retire:
             cp.retain_group(g, self.gather(state, g))
             self.n_retired += 1
+            if self.registry is not None:
+                self.registry.leave(g, t=float(r))
         for g in plan.restore:
             # validate before popping: the error path must not destroy the
             # retained metadata (a fixed-up rerun still needs the entry)
@@ -500,6 +509,8 @@ class RoundExecutor:
             entry = cp.release_group(g)
             state = self.scatter(state, g, entry["params"])
             self.n_restored += 1
+            if self.registry is not None:
+                self.registry.rejoin(g, t=float(r))
         return state
 
     def _apply_memory(self, state, plan, r: int):

@@ -4,22 +4,22 @@ Models a server + K heterogeneous devices with per-device compute rates
 o_k (FLOP/s) and bandwidths b_k (bytes/s), full-duplex links, a serialized
 server compute engine, and FedOptima's Task Scheduler + activation flow
 control.  Produces the paper's system metrics — idle time (Fig. 8/9),
-throughput (Fig. 10/11), communication volume (Fig. 2) — and, when a
-``hooks`` object is supplied, drives real training in event order
-(``core/learning.FedOptimaLearner`` on the card), so accuracy runs use
-genuine learning dynamics.
+throughput (Fig. 10/11), communication volume (Fig. 2), resilience under
+churn (Fig. 12/13) — and, when a ``hooks`` object is supplied, drives
+real training in event order (``core/learning.FedOptimaLearner`` on the
+card), so accuracy runs use genuine learning dynamics.
 
 Simulated time is in seconds; nothing here sleeps.
 
-A copy of the JAX package's ``core/simulation.py`` on the path with no
-plane attached, which is the path ``launch/train.run_sim`` takes: the same
-events, pushed in the same order (``Sim`` breaks ties in time by push
-order, so one event more or fewer would reorder every later tie), and the
-same metrics, bit for bit.  Churn, fleet traces, participant selection,
-the elastic registry, fault injection and the periodic metrics dumps are
-refused with the ROADMAP item that brings them (A7); the sanitizer and
-trace emits come with them.  The baselines (``core/baselines.py``) run
-on the same engine and ``Metrics``.
+A copy of the JAX package's ``core/simulation.py`` with its fleet plane
+(``repro_torch.fleet``): churn, fleet traces, participant selection and
+the elastic registry.  The same events are pushed in the same order
+(``Sim`` breaks ties in time by push order, so one event more or fewer
+would reorder every later tie), and the metrics are the same, bit for
+bit.  Fault injection and the periodic metrics dumps are refused with the
+ROADMAP item that brings them (A7); the sanitizer and trace emits come
+with the sanitizer and telemetry items.  The baselines
+(``core/baselines.py``) run on the same engine and ``Metrics``.
 """
 from __future__ import annotations
 
@@ -29,7 +29,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.fleet.devices import heterogeneous_cluster  # noqa: F401
-from repro_torch.fleet.selection import balance_summary
+from repro_torch.fleet.selection import (SelectionContext, balance_summary,
+                                         make_selection_policy)
+from repro_torch.fleet.traces import FleetTrace, install_fleet, resolve_fleet
 
 from .control_plane import ControlPlane
 from .executor import StragglerProfiles
@@ -38,10 +40,6 @@ from .scheduler import Message
 #: simulate_fedoptima arguments whose planes come with ROADMAP item A7:
 #: argument -> (the value that means "off", the item that brings it).
 LATER = {
-    "churn": (None, "A7, the fleet plane"),
-    "fleet": (None, "A7, the fleet plane"),
-    "selection": (None, "A7, the fleet plane"),
-    "registry": (None, "A7, the fleet plane (the elastic registry)"),
     "faults": (None, "A7, the fault plane"),
     "fault_gate": (None, "A7, the fault plane"),
     "metrics_every": (0.0, "A7, the metrics dumps"),
@@ -115,10 +113,10 @@ class Sim:
 
 @dataclass
 class Metrics:
-    """The run's accounting.  The reference's ``registry`` and ``faults``
-    fields, which only its planes fill, come with item A7.  ``rounds``
-    counts the synchronous baselines' rounds; ``simulate_fedoptima``
-    never sets it."""
+    """The run's accounting.  The reference's ``faults`` field, which only
+    its fault plane fills, comes with item A7.  ``rounds`` counts the
+    synchronous baselines' rounds; ``simulate_fedoptima`` never sets
+    it."""
     K: int
     duration: float = 0.0
     dev_busy: np.ndarray = None
@@ -133,6 +131,8 @@ class Metrics:
     profiles: StragglerProfiles = None   # measured per-device EMAs
     dev_consumed: np.ndarray = None      # (K,) per-device contributions the
                                          # server consumed
+    registry: object = None              # ElasticRegistry mirroring trace
+                                         # join/leave events (fleet runs)
     # -- steady-state (warmup-excluded) accounting: warmup ends at the
     #    server's first dequeue (pipeline fill); see note_warmup_end
     warmup_t: float = None
@@ -283,13 +283,20 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         per-device iteration/transfer durations and server batch times as
         they complete (EMA); by default one is created.  It is returned on
         ``Metrics.profiles``.
-    churn, fleet, selection, registry, faults, fault_gate, metrics_every:
-        the planes of ROADMAP item A7; anything but their default raises
-        ``NotImplementedError``.  ``seed`` only seeds a selection policy,
-        so it moves nothing here.
+    fleet (optional): a ``FleetTrace`` driving device availability and
+        bandwidth, one tick per ``trace.interval``; ``churn`` (a
+        ``ChurnModel``) is materialised onto the same grid
+        (``FleetTrace.from_churn``).  Not both.
+    selection (optional): a participant-selection policy or its spec
+        (``"refl:0.5"``), seeded by ``seed``: each tick it picks the
+        cohort from the available devices.  Without a trace it gets a
+        static identity trace for its ticks.
+    registry (optional): an ``ElasticRegistry`` mirroring the roster; a
+        fleet run makes one.  Returned on ``Metrics.registry``.
+    faults, fault_gate, metrics_every: the planes of ROADMAP item A7;
+        anything but their default raises ``NotImplementedError``.
     """
-    refuse_later(LATER, "simulate_fedoptima", churn=churn, fleet=fleet,
-                 selection=selection, registry=registry, faults=faults,
+    refuse_later(LATER, "simulate_fedoptima", faults=faults,
                  fault_gate=fault_gate, metrics_every=metrics_every)
     sim = Sim()
     K = cluster.K
@@ -318,13 +325,42 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
     sched = cp.scheduler
     flow = cp.flow
 
+    trace = resolve_fleet(fleet, churn, cluster, duration)
+    sel = make_selection_policy(selection, seed=seed)
+    if sel is not None and sel.trivial:
+        sel = None        # select-all ≡ no selection (cohort = available)
+    if sel is not None and trace is None:
+        # selection needs a re-draw cadence even over an always-on fleet:
+        # a static identity trace supplies the tick grid (no churn
+        # events), at a duration-derived interval so short runs still
+        # re-draw the cohort (>= 12 ticks; the §6.4 cadence for long runs)
+        trace = FleetTrace.from_cluster(
+            cluster, duration,
+            interval=max(min(600.0, duration / 12.0), 1e-3))
+    reg = registry
+    if reg is None and trace is not None:
+        from repro_torch.runtime.elastic import ElasticRegistry
+        reg = ElasticRegistry()
+    if reg is not None and not reg.devices:
+        for k in range(K):
+            reg.join(float(cluster.dev_flops[k]), float(cluster.dev_bw[k]))
+    m.registry = reg
+
     active = np.ones(K, bool)
     bw = cluster.dev_bw.astype(float).copy()
+    if trace is not None:
+        trace.apply(active, bw)              # row 0: the initial roster
+        for k in np.flatnonzero(~active):
+            flow.on_device_left(int(k))      # reclaim the pre-granted token
+            if reg is not None:
+                reg.leave(int(k), t=0.0)
     selected = np.ones(K, bool)              # current selection cohort
     running = np.zeros(K, bool)              # device has a round in flight
-    epoch = np.zeros(K, np.int64)            # bumped per departure (A7's
-                                             # churn): a stale epoch kills
-                                             # the pre-leave chain's events
+    epoch = np.zeros(K, np.int64)            # bumped per departure: pending
+                                             # callbacks of the pre-leave
+                                             # chain see a stale epoch and
+                                             # die, so a rejoin can never
+                                             # run two chains concurrently
     versions = cp.versions            # local model version t_k
     srv_state = {"busy": False, "down": 0, "cur": None, "epoch": 0}
 
@@ -449,9 +485,47 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         srv_state["busy"] = False
         kick_server()
 
-    # ---------------- go ----------------
-    for k in range(K):
+    # ---------------- fleet membership (trace ticks) ----------------
+    def on_leave(k):
+        running[k] = False
+        epoch[k] += 1                 # kill the chain's pending callbacks
+        flow.on_device_left(k)
+        # purge the consumption counter (§3.4.2: a rejoin starts with
+        # fresh history); buffered activations still train
+        sched.remove_device(k)
+        if reg is not None:
+            reg.leave(k, t=sim.t)
+
+    def on_rejoin(k):
+        flow.register(k)
+        if reg is not None:
+            reg.rejoin(k, t=sim.t)
+            reg.set_bandwidth(k, float(bw[k]))
         device_start_round(k, H)
+
+    def reselect():
+        """Re-draw the participation cohort from the available devices
+        (fed the live Alg. 3 counters + staleness accounting).  Devices
+        leaving the cohort finish their in-flight round, then idle; new
+        cohort members start immediately."""
+        ctx = SelectionContext(t=sim.t, counters=sched.counters,
+                               staleness=cp.version - versions,
+                               capability=cluster.dev_flops)
+        chosen = sel.select(np.flatnonzero(active), ctx)
+        selected[:] = False
+        selected[np.asarray(chosen, int)] = True
+        for k in np.flatnonzero(selected & active & ~running):
+            device_start_round(int(k), H)
+
+    # ---------------- go ----------------
+    if sel is not None:
+        reselect()
+    else:
+        for k in range(K):
+            device_start_round(k, H)
+    install_fleet(sim, trace, active, bw, on_leave=on_leave,
+                  on_rejoin=on_rejoin,
+                  after_tick=reselect if sel is not None else None)
     sim.run(duration)
     m.duration = duration
     return m

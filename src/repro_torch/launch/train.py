@@ -15,6 +15,17 @@ d_loss … s_loss …`` line is printed when it drains, and a ``memory:`` line
 reports the store's traffic at the end (0s unless the server stalls: a
 programmatic caller can set ``args.profiles`` to a stalled profile).
 
+The fleet plane (``repro_torch.fleet``) drives the roster in both modes:
+``--fleet-trace`` (a trace JSON, or ``diurnal``, ``weibull``, ``flaky``,
+``uniform``) maps one trace tick to one round in pod mode (superseding
+``--p-drop``) and drives joins and leaves in simulated time in sim mode;
+``--fleet-tiers`` (``low:3,high:1``) seeds the pod's straggler profiles
+with the sampled relative speeds, or samples the sim cluster;
+``--selection`` (``random``, ``refl``, ``score``, optionally
+``:fraction``) picks each round's cohort from the available groups.  An
+``ElasticRegistry`` mirrors the roster, and a ``fleet:`` line reports its
+events at the end.
+
 ``--arch`` runs at its smoke reduction unless ``--full`` is given.  The
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
 plain versions.
@@ -48,6 +59,8 @@ event metrics are the JAX package's::
     python -m repro_torch.launch.train --mode sim
     python -m repro_torch.launch.train --mode sim --device cpu --devices 4 \
         --duration 30
+    python -m repro_torch.launch.train --mode sim --device cpu --devices 4 \
+        --duration 30 --fleet-trace flaky --selection refl:0.5
 
 ``--arch`` takes ``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``,
 ``qwen3-32b``, ``gemma2-27b``, ``llama-3.2-vision-90b``, ``whisper-tiny``
@@ -59,6 +72,7 @@ trained model is ``repro_torch.launch.serve``.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -71,8 +85,12 @@ from repro_torch.core.executor import (RoundExecutor, StragglerProfiles,
 from repro_torch.core.staging import to_device
 from repro_torch.data.partitioner import dirichlet_partition
 from repro_torch.data.synthetic import lm_dataset
+from repro_torch.fleet import (FleetTrace, SelectionContext,
+                               make_selection_policy, make_trace,
+                               sample_cluster)
 from repro_torch.memory import ActivationStore
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.runtime.elastic import ElasticRegistry
 
 #: Flags whose machinery comes with later items of ROADMAP.md's queue A:
 #: flag -> (attribute, the value that means "off", the item that brings it).
@@ -80,9 +98,6 @@ from repro_torch.obs.metrics import MetricsRegistry
 LATER = {
     "--ckpt-dir": ("ckpt_dir", None, "A3, checkpoints"),
     "--faults": ("faults", None, "A7, the fault plane"),
-    "--fleet-trace": ("fleet_trace", None, "A7, the fleet plane"),
-    "--fleet-tiers": ("fleet_tiers", None, "A7, the fleet plane"),
-    "--selection": ("selection", None, "A7, the fleet plane"),
     "--trace": ("trace", None, "A7, the telemetry plane"),
     "--sanitize": ("sanitize", False, "A7, the protocol sanitizer"),
     "--metrics-every": ("metrics_every", 0, "A7, the metrics dumps"),
@@ -97,6 +112,33 @@ def _refuse_later_slices(args, table) -> None:
             raise NotImplementedError(
                 f"{flag}={value!r}: not in the torch port yet; it comes with "
                 f"ROADMAP item {later}")
+
+
+def _fleet_trace(args, K: int, horizon: float, interval: float,
+                 bw=None) -> FleetTrace | None:
+    """Resolve --fleet-trace: a JSON artifact path, or a generator kind
+    (diurnal | weibull | flaky | uniform) seeded by --seed with scenario
+    scales derived from the run horizon.  ``bw`` (scalar or per-device
+    array, e.g. a tier-sampled cluster's dev_bw) sets the generated
+    trace's base bandwidths so --fleet-tiers heterogeneity survives."""
+    spec = getattr(args, "fleet_trace", None)
+    if spec is None:
+        return None
+    if spec.endswith(".json") or os.path.exists(spec):
+        trace = FleetTrace.load(spec)
+        if trace.K != K:
+            raise ValueError(f"--fleet-trace describes {trace.K} devices, "
+                             f"this run has {K}")
+        return trace
+    kw = {}
+    if spec == "diurnal":
+        kw = dict(day=horizon / 2.0, on_frac=0.6)   # two "days" per run
+    elif spec == "weibull":
+        kw = dict(on_scale=horizon / 4.0, off_scale=horizon / 8.0)
+    if bw is not None and spec != "flaky":   # flaky re-draws bw per tick
+        kw["bw"] = bw
+    return make_trace(spec, K, horizon, interval=interval,
+                      seed=args.seed, **kw)
 
 
 def _pipeline_window(args) -> int:
@@ -163,11 +205,14 @@ def pod_config(args) -> F.FedStepConfig:
 
 def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     """Run ``args.rounds`` rounds; returns {"history", "final", "executor",
-    "memory", "consumed", "steady_tok_s", "round_stats", "state"}.  A
-    programmatic
+    "memory", "consumed", "steady_tok_s", "round_stats", "state",
+    "fleet"}.  ``"fleet"`` holds each round's available groups and cohort
+    (dispatch order), the registry's roster events, the selection policy
+    and the straggler patterns the plans used.  A programmatic
     caller may set ``args.on_round(r, metrics)``, called as each round
     drains with its metrics as floats, and ``args.profiles``, seeded
-    ``StragglerProfiles`` (uniform by default), and may pass ``cfg`` to run
+    ``StragglerProfiles`` (uniform by default; ``--fleet-tiers`` seeds
+    them from the sampled capabilities), and may pass ``cfg`` to run
     in place of ``pod_config(args)`` (e.g. a full-width arch cut in depth
     with ``ArchConfig.scaled``)."""
     _refuse_later_slices(args, LATER)
@@ -188,17 +233,62 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     act_store = ActivationStore(pool_cap, quant=spill_quant, metrics=reg)
     streams = _group_streams(cfg, seed=args.seed)
     rng = np.random.default_rng(args.seed)
-    profiles = getattr(args, "profiles", None) or StragglerProfiles(G)
+
+    # Fleet emulation (repro_torch.fleet): --fleet-trace maps one trace
+    # tick to one round (the pod roster for round r is trace row r,
+    # wrapping past the horizon); --fleet-tiers samples per-group
+    # capabilities whose relative speeds seed the straggler profiles;
+    # --selection picks the participating cohort from each round's
+    # available groups, fed the live Alg. 3 consumption counters +
+    # staleness accounting.
+    fleet = _fleet_trace(args, G, horizon=float(max(args.rounds, 1)),
+                         interval=1.0)
+    sel = make_selection_policy(getattr(args, "selection", None),
+                                seed=args.seed)
+    caps = None
+    if getattr(args, "fleet_tiers", None):
+        tier_cluster = sample_cluster(G, args.fleet_tiers, seed=args.seed)
+        caps = np.asarray(tier_cluster.dev_flops, float)
+    registry_ = ElasticRegistry()
+    for g in range(G):       # one pod "device" per group
+        registry_.join(flops_per_s=float(caps[g]) if caps is not None
+                       else 1.0, bandwidth=1.0)
+    # Straggler profiles: the lockstep round can only measure the round's
+    # absolute scale, so RELATIVE group speeds come from the seeds —
+    # programmatic callers inject a seeded profile via args.profiles, and
+    # --fleet-tiers seeds one from the sampled capability mix (step time
+    # inversely proportional to flops); the unseeded default is uniform,
+    # whose patterns equal the placeholder defaults.
+    profiles = getattr(args, "profiles", None)
+    if profiles is None and caps is not None:
+        profiles = StragglerProfiles(G, step_s=1.0 / caps)
+    if profiles is None:
+        profiles = StragglerProfiles(G)
     executor = RoundExecutor(F.make_train_step(cfg), cplane, window=window,
                              profiles=profiles, gather=F.gather_group_state,
-                             scatter=F.scatter_group_state, store=act_store,
+                             scatter=F.scatter_group_state,
+                             registry=registry_, store=act_store,
                              gather_slot=F.gather_act_slot,
                              scatter_slot=F.scatter_act_slot, metrics=reg)
+    available, cohorts = [], []
 
     def active_fn(r):
-        roster = rng.random(G) >= args.p_drop
-        if not roster.any():
-            roster[rng.integers(0, G)] = True
+        if fleet is not None:
+            roster = fleet.roster(r)
+        else:
+            roster = rng.random(G) >= args.p_drop
+            if not roster.any():
+                roster[rng.integers(0, G)] = True
+        available.append(np.flatnonzero(roster).tolist())
+        if sel is not None and not sel.trivial and roster.any():
+            ctx = SelectionContext(t=float(r),
+                                   counters=cplane.scheduler.counters,
+                                   staleness=cplane.version - cplane.versions,
+                                   capability=caps)
+            chosen = sel.select(np.flatnonzero(roster), ctx)
+            roster = np.zeros(G, bool)
+            roster[np.asarray(chosen, int)] = True
+        cohorts.append(np.flatnonzero(roster).tolist())
         return roster
 
     def batch_fn(r, plan):
@@ -248,10 +338,21 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
           f"{', int8 spill' if spill_quant else ''})")
     consumed = [cplane.consumption.get(g, 0) for g in range(G)]
     print(f"contribution balance: consumed={consumed}")
+    absences = sum(i.absences for i in registry_.devices.values())
+    if fleet is not None:
+        print(f"fleet: trace={fleet.meta.get('kind', 'custom')}  "
+              f"roster events={absences}  "
+              f"selection={sel.describe() if sel else 'all'}")
+    produce, reads = profiles.produce(cfg.H), profiles.reads(cfg.H)
     return {"history": history, "final": history[-1] if history else None,
             "executor": xs, "memory": mem, "consumed": consumed,
             "steady_tok_s": steady, "round_stats": executor.stats,
-            "state": state}
+            "state": state,
+            "fleet": {"available": available, "cohorts": cohorts,
+                      "roster_events": absences, "registry": registry_,
+                      "selection": sel.describe() if sel else "all",
+                      "produce_per_round": produce.sum(axis=0).tolist(),
+                      "reads_per_round": int(reads.sum())}}
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +362,11 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
 def run_sim(args) -> dict:
     """The JAX driver's ``run_sim``: a VGG-5 FedOptima learner (16x16
     images, 10 classes, l_split 1) on ``args.device`` in the event
-    simulator over ``heterogeneous_cluster(args.devices)``.  Prints the
-    reference's lines and returns its dict; ``"registry"`` is the port's
-    ``MetricsRegistry`` snapshot."""
+    simulator over ``heterogeneous_cluster(args.devices)``, or a cluster
+    sampled from ``--fleet-tiers``, under ``--fleet-trace`` and
+    ``--selection`` when given.  Prints the reference's lines and returns
+    its dict; ``"registry"`` is the port's ``MetricsRegistry``
+    snapshot."""
     _refuse_later_slices(args, LATER)
     from repro_torch.core.learning import FedOptimaLearner, ModelAdapter
     from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
@@ -295,15 +398,27 @@ def run_sim(args) -> dict:
                          full_fwd_flops=6e9, srv_flops_per_batch=1.2e10,
                          act_bytes=2e6, dev_model_bytes=1e6,
                          full_model_bytes=4e6, batch_size=32)
-    cluster = heterogeneous_cluster(args.devices)
+    # fleet emulation: --fleet-tiers samples the cluster from a weighted
+    # capability mix (default: the paper's 4 uniform speed groups), and
+    # --fleet-trace/--selection drive availability + cohort choice
+    if getattr(args, "fleet_tiers", None):
+        cluster = sample_cluster(args.devices, args.fleet_tiers,
+                                 seed=args.seed)
+    else:
+        cluster = heterogeneous_cluster(args.devices)
+    fleet = _fleet_trace(args, args.devices, args.duration,
+                         interval=max(args.duration / 12.0, 1.0),
+                         bw=cluster.dev_bw)
     control = ControlPlane.for_sim(args.devices, omega, policy=policy,
                                    max_delay=max_delay, pool_cap=pool_cap)
     profiles = StragglerProfiles(args.devices)
     metrics = simulate_fedoptima(sim_model, cluster, duration=args.duration,
                                  omega=omega, H=H, policy=policy,
                                  max_delay=max_delay, pool_cap=pool_cap,
-                                 seed=args.seed, hooks=learner,
-                                 control=control, profiles=profiles)
+                                 seed=args.seed, fleet=fleet,
+                                 selection=getattr(args, "selection", None),
+                                 hooks=learner, control=control,
+                                 profiles=profiles)
     xte, yte = data.x[:512], data.y[:512]
     acc = learner.eval_accuracy(xte, yte)
     # the measured per-device profiles drive a straggler-aware plan: slow
@@ -331,6 +446,13 @@ def run_sim(args) -> dict:
               f"srv idle {steady['srv_idle_frac_steady']:.1%}  dev idle "
               f"{steady['dev_idle_frac_steady']:.1%}  throughput "
               f"{steady['throughput_steady']:.0f} samples/s")
+    if metrics.registry is not None:
+        absences = sum(i.absences
+                       for i in metrics.registry.devices.values())
+        kind = fleet.meta.get("kind", "custom") if fleet is not None \
+            else "identity"     # selection-only runs get an identity trace
+        print(f"fleet: trace={kind}  roster events={absences}  active now "
+              f"{len(metrics.registry.active_ids)}/{args.devices}")
     return {"accuracy": acc, "srv_idle": metrics.srv_idle_frac,
             "dev_idle": metrics.dev_idle_frac,
             "throughput": metrics.throughput,
@@ -404,12 +526,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "loop, 2 = the host plans and builds round r+1 "
                         "while the card runs round r (metric values do "
                         "not depend on the window)")
+    p.add_argument("--fleet-trace", default=None, dest="fleet_trace",
+                   help="device availability trace (repro_torch.fleet): a "
+                        "JSON artifact saved by FleetTrace.save, or a "
+                        "generator kind — diurnal | weibull | flaky | "
+                        "uniform — seeded by --seed.  Sim mode drives "
+                        "join/leave from trace ticks; pod mode maps one "
+                        "tick to one round (trace-driven churn exercises "
+                        "per-group retention end-to-end, superseding "
+                        "--p-drop)")
+    p.add_argument("--fleet-tiers", default=None, dest="fleet_tiers",
+                   help="capability-tier mix for the fleet, e.g. "
+                        "'low,mid,high,premium' or 'low:3,premium:1' "
+                        "(repro_torch.fleet.devices).  Sim mode samples "
+                        "the cluster from it; pod mode seeds the straggler "
+                        "profiles with the sampled relative speeds")
+    p.add_argument("--selection", default=None,
+                   help="participant-selection policy: random | refl | "
+                        "score, optionally ':fraction' (e.g. refl:0.5 "
+                        "runs the most-stale half each tick).  Fed the "
+                        "Alg. 3 consumption counters + staleness "
+                        "accounting; default: every available device")
     # later slices of the port: refused with NotImplementedError when set
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--faults", default=None)
-    p.add_argument("--fleet-trace", default=None)
-    p.add_argument("--fleet-tiers", default=None)
-    p.add_argument("--selection", default=None)
     p.add_argument("--trace", default=None)
     p.add_argument("--sanitize", action="store_true")
     p.add_argument("--metrics-every", type=float, default=0)

@@ -380,9 +380,7 @@ def test_lm_batches_exact(seed):
 # (f) what comes later is refused, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-PLANE_ARGS = [("churn", object(), "A7, the fleet plane"),
-              ("fleet", object(), "A7, the fleet plane"),
-              ("faults", "random", "A7, the fault plane"),
+PLANE_ARGS = [("faults", "random", "A7, the fault plane"),
               ("fault_gate", False, "A7, the fault plane")]
 REFUSALS = [(name, arg, value, item) for name in tbase.REGISTRY
             for arg, value, item in PLANE_ARGS]

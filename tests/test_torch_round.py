@@ -86,13 +86,17 @@ def _assert_plans_equal(pt, pj):
                                       err_msg=f.name)
 
 
-def _rounds(arch, use_kernel, opts, perturb=None, resync=()):
+def _rounds(arch, use_kernel, opts, perturb=None, resync=(),
+            rosters=ROSTERS, patterns=None):
     """Both packages' rounds from the JAX init, in lockstep under equal
     plans: yields (round, port metrics, JAX metrics, port state, JAX
     state) as numpy after each round.  ``perturb`` edits the port's init
     state in place before the first round; after each round in ``resync``
-    the port goes on from the JAX state instead of its own."""
-    kw = dict(l_split=1, n_groups=2, seq_len=16, per_group_batch=4, H=2,
+    the port goes on from the JAX state instead of its own.  ``rosters``
+    gives each round's active groups (their length is G), ``patterns``
+    each round's (produce, reads) straggler patterns (None: uniform)."""
+    G = len(rosters[0])
+    kw = dict(l_split=1, n_groups=G, seq_len=16, per_group_batch=4, H=2,
               omega=2, use_kernel=use_kernel, **opts)
     dtype = kw.pop("param_dtype", "float32")
     jcfg = JF.FedStepConfig(arch=jreg.smoke_config(arch),
@@ -104,13 +108,15 @@ def _rounds(arch, use_kernel, opts, perturb=None, resync=()):
     if perturb is not None:
         perturb(tstate)
     step = TF.make_train_step(tcfg)
-    jplane = jcp.ControlPlane(2, jcfg.omega, jcfg.H)
-    tplane = tcp.ControlPlane(2, tcfg.omega, tcfg.H)
+    jplane = jcp.ControlPlane(G, jcfg.omega, jcfg.H)
+    tplane = tcp.ControlPlane(G, tcfg.omega, tcfg.H)
     rng = np.random.default_rng(0)
-    G, H, b, S = 2, 2, 2, 16
-    for r, active in enumerate(ROSTERS):
-        pj, pt = jplane.plan_round(active=active), \
-            tplane.plan_round(active=active)
+    H, b, S = 2, 2, 16
+    for r, active in enumerate(rosters):
+        produce, reads = patterns[r] if patterns is not None else \
+            (None, None)
+        pj = jplane.plan_round(active=active, produce=produce, reads=reads)
+        pt = tplane.plan_round(active=active, produce=produce, reads=reads)
         _assert_plans_equal(pt, pj)
         for g in pt.retire:
             jplane.retain_group(g, JF.gather_group_state(jstate, g))
@@ -364,7 +370,6 @@ REFUSED = [  # flags, the error, what its message must name
      "A7, the fault plane"),
     (["--faults", "random"], NotImplementedError, "A7, the fault plane"),
     (["--trace", "t"], NotImplementedError, "A7, the telemetry plane"),
-    (["--fleet-trace", "t"], NotImplementedError, "A7, the fleet plane"),
     (["--sanitize"], NotImplementedError, "A7, the protocol sanitizer"),
     (["--metrics-every", "2"], NotImplementedError, "A7, the metrics"),
     (["--window", "-1"], ValueError, "window must be >= 1"),

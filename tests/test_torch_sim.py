@@ -434,11 +434,7 @@ def test_larger_omega_no_less_server_work():
 # what comes later is refused, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-PLANE_ARGS = [("churn", object(), "A7, the fleet plane"),
-              ("fleet", object(), "A7, the fleet plane"),
-              ("selection", "random", "A7, the fleet plane"),
-              ("registry", object(), "A7, the fleet plane"),
-              ("faults", "random", "A7, the fault plane"),
+PLANE_ARGS = [("faults", "random", "A7, the fault plane"),
               ("fault_gate", False, "A7, the fault plane"),
               ("metrics_every", 5.0, "A7, the metrics dumps")]
 
@@ -453,9 +449,6 @@ def test_simulator_refuses_later_planes(name, value, item):
 
 
 SIM_REFUSED = [(["--faults", "random"], "A7, the fault plane"),
-               (["--fleet-trace", "diurnal"], "A7, the fleet plane"),
-               (["--fleet-tiers", "low,mid"], "A7, the fleet plane"),
-               (["--selection", "refl"], "A7, the fleet plane"),
                (["--trace", "t.json"], "A7, the telemetry plane"),
                (["--sanitize"], "A7, the protocol sanitizer"),
                (["--metrics-every", "5"], "A7, the metrics dumps"),
