@@ -166,6 +166,24 @@ exits non-zero:
    simulated s): every ``Metrics`` field, the registry's contents
    included, equal to the host run with no learner, the hook counts equal
    to the simulator's.
+11. telemetry — the telemetry plane (``repro_torch.obs``): (a) smollm-135m's
+   main path (full width and depth, G=4, batch 8, H=4, seq 1024, l_split
+   3, ω=1, the kernels) through ``run_pod`` at window 2 for
+   ``TELEMETRY_ROUNDS`` rounds, twice from one seed: untraced, then with a
+   wall-domain ``Tracer`` attached and ``--metrics-out``.  Histories and
+   final params bit-identical, the Chrome export valid (and through
+   ``python -m repro_torch.obs.trace``'s check), the ``mesh`` spans' ends
+   (CUDA events placed on the wall clock by one anchor) apart by each
+   pair of rounds' ``completion_gap_s`` within ``TELEMETRY_GAP_TOL``, the
+   kernels launched as reckoned in both runs.  Printed: ``attribute_idle``
+   over the steady rounds (from round 2's start on the card to the last
+   round's completion) with the server's busy and idle shares by class, how much of
+   the server's idle time each host lane covers, the longest span of each
+   host lane, and the launches.  (b) ``run_sim`` at phase 7 (a)'s
+   defaults but for ``TELEMETRY_SIM_DURATION`` simulated seconds,
+   untraced and traced (sim domain): equal event metrics, the idle classes
+   summing to the horizon for the server and each device, no kernel
+   launched.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -2526,6 +2544,218 @@ def phase_fleet(torch, counters) -> dict:
     return {"pod": pod, "sim": sim, "baselines": base}
 
 
+# ---------------------------------------------------------------------------
+# 11. the telemetry plane
+# ---------------------------------------------------------------------------
+
+# (a): smollm's main path at window 2, untraced and traced
+TELEMETRY_ROUNDS = 4
+# the mesh spans' ends are card events placed through one anchor: their
+# differences are event-to-event times, as completion_gap_s is (seconds)
+TELEMETRY_GAP_TOL = 1e-4
+# (b): run_sim's defaults for 60 simulated seconds
+TELEMETRY_SIM_DURATION = 60.0
+TELEMETRY_DIR = ROOT / "build" / "telemetry"
+
+
+def _steady_tracer(tracer, t_start: float, t_end: float):
+    """The spans of ``tracer`` cut to [t_start, t_end], shifted to start at
+    0 (its instants dropped: the pod records none)."""
+    from repro_torch.obs.trace import Tracer
+    out = Tracer(domain=tracer.domain)
+    for lane, name, t0, t1, args in tracer.spans:
+        a, b = max(t0, t_start), min(t1, t_end)
+        if b > a:
+            out.add_span(lane, name, a - t_start, b - t_start, **(args or {}))
+    return out
+
+
+def _idle_cover(tracer, lane: str, duration: float) -> float:
+    """Seconds of the server's idle time (outside every ``mesh`` span)
+    that spans of ``lane`` cover, over [0, duration]."""
+    def merged(name):
+        out = []
+        for t0, t1 in sorted((s[2], s[3]) for s in tracer.spans
+                             if s[0] == name):
+            if out and t0 <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], t1)
+            else:
+                out.append([t0, t1])
+        return out
+    busy, host = merged("mesh"), merged(lane)
+    idle, t = [], 0.0
+    for t0, t1 in busy:
+        if t0 > t:
+            idle.append((t, t0))
+        t = max(t, t1)
+    if t < duration:
+        idle.append((t, duration))
+    return sum(max(0.0, min(b, d) - max(a, c))
+               for a, b in idle for c, d in host)
+
+
+def telemetry_pod(torch, counters) -> dict:
+    """(a): the pod round untraced and traced; the trace's checks."""
+    from repro_torch.core.executor import completion_gap_s
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.idle import attribute_idle
+    t0 = time.perf_counter()
+    TELEMETRY_DIR.mkdir(parents=True, exist_ok=True)
+    trace_path = TELEMETRY_DIR / "pod_trace.json"
+    metrics_path = TELEMETRY_DIR / "pod_metrics.jsonl"
+    metrics_path.unlink(missing_ok=True)
+    flags = ["--rounds", str(TELEMETRY_ROUNDS), "--window", "2"]
+    plain = drive(torch, *main_setup("smollm-135m", flags), counters,
+                  keep_final=True)
+    args, cfg = main_setup("smollm-135m", flags + [
+        "--metrics-out", str(metrics_path)])
+    tracer = obs_trace.Tracer(domain="wall")
+    with obs_trace.traced(tracer):
+        run = drive(torch, args, cfg, counters, keep_final=True)
+    tracer.export_chrome(str(trace_path))
+    per_round, want = launches_per_round(cfg, counters)
+    want_total = {k: n * TELEMETRY_ROUNDS for k, n in want.items()}
+    same_hist = plain["history"] == run["history"]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(plain["final"]), tree_leaves(run["final"])))
+    problems = obs_trace.validate_chrome_trace(tracer.to_chrome())
+    cli_rc = obs_trace._main([str(trace_path)])
+    record = json.loads(metrics_path.read_text().splitlines()[0])
+    walls = record["metrics"]["histograms"]["exec.round_wall_s"]
+    mesh = sorted((s for s in tracer.spans if s[0] == "mesh"),
+                  key=lambda s: s[4]["round"])
+    stats = run["round_stats"]
+    gaps = [(b[3] - a[3], completion_gap_s(sa, sb))
+            for a, b, sa, sb in zip(mesh, mesh[1:], stats, stats[1:])]
+    gap_err = max(abs(x - y) for x, y in gaps)
+    # the steady rounds: from round 2's start on the card (its span, after
+    # the clip) to the last round's completion; the gaps between them are
+    # the server's idle time
+    t_start, t_end = mesh[1][2], mesh[-1][3]
+    steady = _steady_tracer(tracer, t_start, t_end)
+    attr = attribute_idle(steady, duration=t_end - t_start)
+    srv, devs, dur = attr["server"], attr["devices"], attr["duration"]
+    host_lanes = sorted({s[0] for s in tracer.spans
+                         if s[0].startswith("host/")})
+    cover = {ln: _idle_cover(steady, ln, dur) for ln in host_lanes}
+    longest = {ln: max(s[3] - s[2] for s in tracer.spans if s[0] == ln)
+               for ln in host_lanes}
+    lanes = tracer.lanes()
+    print(f"[telemetry] (a) smollm-135m full width, 30 layers, window 2, "
+          f"{TELEMETRY_ROUNDS} rounds, untraced then traced with "
+          f"--metrics-out: histories bit-identical {same_hist}, final params "
+          f"bit-identical {same_params} | trace {len(tracer.spans)} spans on "
+          f"{len(lanes)} lanes {lanes}, validator problems {len(problems)}, "
+          f"CLI rc {cli_rc} | mesh span ends apart vs completion_gap_s (ms) "
+          f"{[(round(1e3 * x, 4), round(1e3 * y, 4)) for x, y in gaps]}, "
+          f"max |difference| {gap_err * 1e3:.6f} ms <= "
+          f"{TELEMETRY_GAP_TOL * 1e3} ms | metrics-out mode "
+          f"{record['mode']} rounds {record['rounds']}, exec.round_wall_s "
+          f"count {walls['count']}", flush=True)
+    print(f"[telemetry] (a) steady rounds 2-{TELEMETRY_ROUNDS} "
+          f"({dur * 1e3:.3f} ms from round 2's start on the card to round "
+          f"{TELEMETRY_ROUNDS}'s completion): server (mesh) busy "
+          f"{srv['busy_s'] / dur:.4f}, idle {srv['idle_frac']:.4f} = "
+          f"task_dependency {srv['task_dependency_frac']:.4f} + straggler "
+          f"{srv['straggler_frac']:.4f} (warmup {srv['warmup_s'] * 1e3:.3f} "
+          f"ms) | devices busy {devs['busy_s'] / (devs['n'] * dur):.4f} "
+          f"idle {devs['idle_frac']:.4f} | server idle ms covered "
+          f"by each host lane "
+          f"{ {ln: round(v * 1e3, 3) for ln, v in cover.items()} } of "
+          f"{(srv['task_dependency_s'] + srv['straggler_s']) * 1e3:.3f} | "
+          f"longest host span ms "
+          f"{ {ln: round(v * 1e3, 3) for ln, v in longest.items()} } | "
+          f"launches {run['launches']} ({per_round} a round per attention "
+          f"kernel) | {time.perf_counter() - t0:.0f} s", flush=True)
+    for name, r in (("untraced", plain), ("traced", run)):
+        if r["launches"] != want_total:
+            raise AssertionError(f"telemetry {name}: launches "
+                                 f"{r['launches']}, want {want_total}")
+        for m in r["history"]:
+            if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
+                raise AssertionError(f"telemetry {name}: non-finite loss "
+                                     f"{m}")
+    if not (same_hist and same_params):
+        raise AssertionError("telemetry: the traced run differs from the "
+                             "untraced one")
+    if problems or cli_rc != 0:
+        raise AssertionError(f"telemetry: the trace is not valid: "
+                             f"{problems[:5]}")
+    if len(mesh) != TELEMETRY_ROUNDS or gap_err > TELEMETRY_GAP_TOL:
+        raise AssertionError(f"telemetry: mesh spans {len(mesh)}, their "
+                             f"ends against completion_gap_s {gaps}")
+    need = {"mesh", "host/plan", "host/build", "host/drain", "host/control"}
+    if not need <= set(lanes) or not any(ln.startswith("dev/")
+                                         for ln in lanes):
+        raise AssertionError(f"telemetry: lanes {lanes} miss some of "
+                             f"{sorted(need)} or dev/*")
+    if (record["mode"], record["rounds"]) != ("pod", TELEMETRY_ROUNDS):
+        raise AssertionError(f"telemetry: metrics-out record {record}")
+    return {"launches": run["launches"], "attribution": attr,
+            "gap_err_s": gap_err, "cover": cover, "longest": longest}
+
+
+def telemetry_sim(torch, counters) -> dict:
+    """(b): run_sim untraced and traced in the sim domain."""
+    from repro_torch.launch import train
+    from repro_torch.obs.idle import attribute_idle
+    from repro_torch.obs.trace import Tracer, traced
+    t0 = time.perf_counter()
+    for c in counters:
+        c.reset_launches()
+    argv = ["--mode", "sim", "--duration", str(TELEMETRY_SIM_DURATION)]
+    plain = train.run_sim(train.build_parser().parse_args(argv))
+    tracer = Tracer(domain="sim")
+    with traced(tracer):
+        out = train.run_sim(train.build_parser().parse_args(argv))
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    diff = [k for k in plain if k != "accuracy" and plain[k] != out[k]]
+    attr = attribute_idle(tracer, duration=TELEMETRY_SIM_DURATION)
+    srv = attr["server"]
+    sums = [srv["busy_s"] + srv["warmup_s"] + srv["task_dependency_s"]
+            + srv["straggler_s"]]
+    sums += [sum(row[k] for k in ("busy_s", "warmup_s", "offline_s",
+                                  "task_dependency_s", "straggler_s"))
+             for row in attr["per_device"].values()]
+    sum_err = max(abs(x - TELEMETRY_SIM_DURATION) for x in sums)
+    print(f"[telemetry] (b) run_sim at its defaults for "
+          f"{TELEMETRY_SIM_DURATION} simulated s, untraced and traced: event "
+          f"metrics equal {not diff} (accuracy {plain['accuracy']:.4f} / "
+          f"{out['accuracy']:.4f}) | trace {len(tracer.spans)} spans, "
+          f"{len(tracer.instants)} instants on {len(tracer.lanes())} lanes | "
+          f"server busy {srv['busy_s'] / TELEMETRY_SIM_DURATION:.4f} idle "
+          f"{srv['idle_frac']:.4f} (task_dependency "
+          f"{srv['task_dependency_frac']:.4f}, straggler "
+          f"{srv['straggler_frac']:.4f}, warmup {srv['warmup_s']:.3f} s) | "
+          f"devices idle {attr['devices']['idle_frac']:.4f} (task_dependency "
+          f"{attr['devices']['task_dependency_frac']:.4f}, straggler "
+          f"{attr['devices']['straggler_frac']:.4f}) | classes sum to the "
+          f"horizon for {len(sums)} entities, max |sum - horizon| "
+          f"{sum_err:.3e} s | kernel launches {launches} | "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    if diff:
+        raise AssertionError(f"telemetry: the traced run_sim differs in "
+                             f"{diff}")
+    if sum_err > 1e-9 * TELEMETRY_SIM_DURATION:
+        raise AssertionError(f"telemetry: idle classes do not sum to the "
+                             f"horizon: {sums}")
+    if any(launches.values()):
+        raise AssertionError(f"telemetry: a kernel of the five ran in "
+                             f"run_sim: {launches}")
+    return {"attribution": attr}
+
+
+def phase_telemetry(torch, counters) -> dict:
+    """(a) the pod round traced on the wall clock; (b) run_sim traced in
+    simulated time."""
+    t0 = time.perf_counter()
+    pod = telemetry_pod(torch, counters)
+    sim = telemetry_sim(torch, counters)
+    print(f"[telemetry] phase {time.perf_counter() - t0:.0f} s", flush=True)
+    return {"pod": pod, "sim": sim}
+
+
 def _sim_describe(cfg) -> str:
     if hasattr(cfg, "img_size"):
         return (f"{cfg.img_size}x{cfg.img_size}x{cfg.in_channels}, "
@@ -2585,6 +2815,9 @@ def main() -> int:
     t1 = time.perf_counter()
     fleet = phase_fleet(torch, (fa, ssd_k))
     print(f"[time] fleet: {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    telemetry = phase_telemetry(torch, (fa, ssd_k))
+    print(f"[time] telemetry: {time.perf_counter() - t1:.0f} s", flush=True)
     served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
               if run["serve"] is not None}
     kernels = []
@@ -2607,7 +2840,9 @@ def main() -> int:
                             "smollm-135m tiered store":
                                 store["launches"][name],
                             "smollm-135m fleet":
-                                fleet["pod"]["runs"][2]["launches"][name]},
+                                fleet["pod"]["runs"][2]["launches"][name],
+                            "smollm-135m telemetry":
+                                telemetry["pod"]["launches"][name]},
                         "serve_launches": {p: n[name]
                                            for p, n in served.items()}})
         if name.startswith("ssd_"):

@@ -22,17 +22,21 @@ grid (``FleetTrace.from_churn``: identical draws, bit for bit).
 A copy of the JAX package's ``core/baselines.py`` with its fleet plane:
 the same events, pushed in the same order (``Sim`` breaks ties in time by
 push order, so one push more, fewer or out of order would reorder every
-later tie), and the same metrics, bit for bit.  The ``faults=`` and
-``fault_gate=`` planes are refused with the ROADMAP item that brings them
-(A7), as ``simulate_fedoptima`` refuses them; the sanitizer and trace
-emits come with the sanitizer and telemetry items.  ``seed`` is unused,
-as in the reference.
+later tie), and the same metrics, bit for bit.  With a tracer attached
+the busy intervals carry the reference's span names and lanes (PiPar's
+overlapped forward on the ``dev/<k>/pipe`` sub-lane) and the churn seams
+emit ``leave``/``join`` instants, so the sim-domain traces are equal too.
+The ``faults=`` and ``fault_gate=`` planes are refused with the ROADMAP
+item that brings them (A7.3), as ``simulate_fedoptima`` refuses them; the
+sanitizer's emits come with A7.5.  ``seed`` is unused, as in the
+reference.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.fleet.traces import install_fleet, resolve_fleet
+from repro_torch.obs import trace as _tr
 
 from . import simulation
 from .simulation import Metrics, Sim, SimCluster, SimModel, refuse_later
@@ -82,7 +86,8 @@ def simulate_classic_fl(model: SimModel, cluster: SimCluster, *,
         start = sim.t
 
         def done():
-            m.note_dev_busy(k, start, sim.t, samples=model.batch_size)
+            m.note_dev_busy(k, start, sim.t, name="train",
+                            samples=model.batch_size)
             if hooks:
                 hooks.device_iter(k, False)
             if h_left > 1:
@@ -103,7 +108,7 @@ def simulate_classic_fl(model: SimModel, cluster: SimCluster, *,
             dt = model.agg_flops * max(1, K) / cluster.srv_flops
 
             def agg_done():
-                m.note_srv_busy(start, sim.t)
+                m.note_srv_busy(start, sim.t, name="aggregate")
                 m.aggregations += 1
                 if hooks:
                     hooks.sync_aggregate()
@@ -143,8 +148,12 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
     def on_leave(k):
         running[k] = False
         epoch[k] += 1
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "leave", sim.t)
 
     def on_rejoin(k):
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "join", sim.t)
         dev_round(k)
 
     def dev_round(k):
@@ -161,7 +170,8 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
         def done():
             if not active[k] or epoch[k] != e:
                 return
-            m.note_dev_busy(k, start, sim.t, samples=model.batch_size)
+            m.note_dev_busy(k, start, sim.t, name="train",
+                            samples=model.batch_size)
             if hooks:
                 hooks.device_iter(k, False)
             if h_left > 1:
@@ -189,7 +199,7 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
         dt = model.agg_flops * len(batch) / cluster.srv_flops
 
         def agg_done():
-            m.note_srv_busy(start, sim.t)
+            m.note_srv_busy(start, sim.t, name="aggregate")
             m.aggregations += 1
             for kk, _ in batch:
                 m.note_contribution(kk)
@@ -275,8 +285,12 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
     def on_leave(k):
         running[k] = False
         epoch[k] += 1
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "leave", sim.t)
 
     def on_rejoin(k):
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "join", sim.t)
         dev_round(k)
 
     def dev_round(k):
@@ -293,18 +307,23 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
         def fwd_done():
             if not active[k] or epoch[k] != e:
                 return
-            m.note_dev_busy(k, start, sim.t)
+            m.note_dev_busy(k, start, sim.t, name="fwd")
             tx = model.act_bytes / bw[k]
             m.bytes_up += model.act_bytes
+            if _tr.TRACING:
+                _tr.emit_span(f"net/{k}", "act_upload", sim.t, sim.t + tx,
+                              clip=True)
             sim.after(tx, srv_request, k, h_left, e)
             # PiPar: overlap — start next microbatch fwd while waiting
             if pipeline and h_left > 1:
                 start2 = sim.t
 
                 def fwd2_done():
-                    # the overlapped forward counts as device busy time on
-                    # top of the waiting forward's, as in the reference
-                    m.note_dev_busy(k, start2, sim.t)
+                    # overlapped fwd rides a pipeline sub-lane: the device
+                    # is genuinely busy twice over, which one lane cannot
+                    # render without overlap
+                    m.note_dev_busy(k, start2, sim.t, name="fwd_overlap",
+                                    lane=f"dev/{k}/pipe")
                 sim.after(t_fwd[k], fwd2_done)
         sim.after(t_fwd[k], fwd_done)
 
@@ -322,7 +341,7 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
         dt = model.srv_flops_per_batch / cluster.srv_flops
 
         def done():
-            m.note_srv_busy(start, sim.t)
+            m.note_srv_busy(start, sim.t, name="train_batch")
             m.srv_batches += 1
             m.note_contribution(k)
             if hooks:
@@ -347,7 +366,8 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
                     barrier_arrive()
                 return
             # PiPar already accounted the overlapped fwd busy time
-            m.note_dev_busy(k, start, sim.t, samples=model.batch_size)
+            m.note_dev_busy(k, start, sim.t, name="bwd",
+                            samples=model.batch_size)
             if hooks:
                 hooks.device_iter(k, True)
             if h_left > 1:
@@ -374,7 +394,7 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
             dt = model.agg_flops / cluster.srv_flops
 
             def agg_done():
-                m.note_srv_busy(start, sim.t)
+                m.note_srv_busy(start, sim.t, name="aggregate")
                 m.aggregations += 1
                 if hooks:
                     hooks.aggregate(k)
@@ -397,7 +417,7 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
             dt = model.agg_flops * K / cluster.srv_flops
 
             def agg_done():
-                m.note_srv_busy(start, sim.t)
+                m.note_srv_busy(start, sim.t, name="aggregate")
                 m.aggregations += 1
                 m.rounds += 1
                 if hooks:

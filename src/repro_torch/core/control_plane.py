@@ -52,6 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.memory.policy import make_eviction_policy
+from repro_torch.obs import trace as _tr
+from repro_torch.obs.clock import now as _now
 
 from .aggregator import staleness_weight
 from .flow_control import FlowController
@@ -198,6 +200,7 @@ class ControlPlane:
             new scheduled batch; default all.  A False entry replays an
             already-consumed slot.
         """
+        tp0 = _now() if _tr.TRACING else 0.0
         G, H = self.G, self.H
         active = np.ones(G, bool) if active is None else \
             np.asarray(active, bool)
@@ -230,12 +233,16 @@ class ControlPlane:
             read_slot[h] = self._plan_read(consume=bool(reads[h]))
             write_slot[h] = self._plan_write(produce[h], send_mask[h])
 
-        return RoundPlan(read_slot=read_slot, write_slot=write_slot,
+        plan = RoundPlan(read_slot=read_slot, write_slot=write_slot,
                          send_mask=send_mask,
                          agg_weight=self.agg_weights(active),
                          bcast_mask=active.astype(np.float32),
                          retire=retire, restore=restore,
                          fill=fill, spill=tuple(self._round_spills))
+        if _tr.TRACING:
+            _tr.emit_span("host/control", "plan_round", tp0, _now(),
+                          version=int(self.version))
+        return plan
 
     def retain_group(self, g: int, params):
         """Hold a dropped group's dev/aux params at its last-synced version."""
@@ -380,6 +387,7 @@ class ControlPlane:
     def finish_round(self, active=None):
         """End-of-round accounting: one round is one aggregation event;
         every participant syncs to the new global model (Alg. 4 l. 12-20)."""
+        tf0 = _now() if _tr.TRACING else 0.0
         active = np.ones(self.G, bool) if active is None else \
             np.asarray(active, bool)
         t = self.version
@@ -390,10 +398,17 @@ class ControlPlane:
         self.n_accepted += len(accepted)
         self.n_rejected += int(active.sum()) - len(accepted)
         if not accepted:
+            # every update rejected: no aggregation event, nobody resyncs
+            if _tr.TRACING:
+                _tr.emit_span("host/control", "finish_round", tf0, _now(),
+                              n_accepted=0)
             return
         self.version = t + 1
         for g in np.flatnonzero(active):
             self.versions[g] = self.version
+        if _tr.TRACING:
+            _tr.emit_span("host/control", "finish_round", tf0, _now(),
+                          n_accepted=len(accepted))
 
     # -- event-simulator staleness hooks (per arrival; the version always
     #    advances: the simulator counts every aggregation event) --

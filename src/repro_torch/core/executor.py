@@ -44,9 +44,19 @@ It also owns the host-card consistency duties of the round loop:
 The cap invariant (ω ring slots, ω + pool_cap in flow units) raises
 ``RuntimeError`` with the ring-slot and pool occupancy.
 
+With a tracer attached (``repro_torch.obs.trace``, wall domain) the loop
+emits the reference's lanes: ``host/plan``, ``host/build``,
+``host/memory``, ``host/capture``, ``host/ckpt``, ``host/drain``, and the
+``mesh`` and ``dev/<g>`` round spans.  Off the card a round's span runs
+from dispatch to its observed completion, as in the reference.  On the
+card it runs between two CUDA events, ``start`` recorded before the
+step's kernels and ``done`` after its metrics copy, placed on the wall
+clock through one anchor event that the first traced dispatch of a run
+records and waits for.  Tracing reads no tensor and changes no value.
+
 The torch form of the JAX package's ``core/executor.py``.  Still to come:
-the fault plane (``faults``) and the trace and sanitizer emits; the
-store's advisory prefetch is not ported.
+the fault plane (``faults``) and the sanitizer emits; the store's
+advisory prefetch and the light per-round handles are not ported.
 """
 from __future__ import annotations
 
@@ -56,6 +66,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.obs import trace as _tr
 from repro_torch.obs.clock import now as _now
 from repro_torch.obs.metrics import MetricsRegistry
 
@@ -231,6 +242,8 @@ class RoundStats:
     round_wall_s: float = 0.0    # measured round wall (set at drain)
     done: object = None          # CUDA event after the round's metrics
                                  # copy (None off the card): its completion
+    start: object = None         # CUDA event before the round's kernels
+                                 # (recorded only while tracing on the card)
     plan: object = None          # the RoundPlan this round ran under —
                                  # available in the on_metrics drain hook,
                                  # dropped afterwards (memory)
@@ -268,6 +281,21 @@ def _stage_metrics(metrics: dict):
     done = torch.cuda.Event(enable_timing=True)
     done.record(torch.cuda.current_stream(card[0].device))
     return values, done
+
+
+def _card_of(state):
+    """The CUDA device of the first tensor in ``state`` (a nest of dicts,
+    lists and tuples), or None when it holds none on the card."""
+    todo = [state]
+    while todo:
+        x = todo.pop()
+        if isinstance(x, torch.Tensor):
+            return x.device if x.is_cuda else None
+        if isinstance(x, dict):
+            todo.extend(reversed(list(x.values())))
+        elif isinstance(x, (list, tuple)):
+            todo.extend(reversed(x))
+    return None
 
 
 class RoundExecutor:
@@ -341,6 +369,8 @@ class RoundExecutor:
         self.n_retired = 0               # groups gathered into retention
         self.n_restored = 0              # groups scattered back
         self._deferred: deque[RoundHandle] = deque()   # no-flush saves
+        # the traced card clock: (anchor event, its wall time) per run
+        self._anchor: tuple | None = None
 
     # legacy counter names, read-only over the registry instruments
     @property
@@ -396,6 +426,7 @@ class RoundExecutor:
         flush = (capture_fn is None) if checkpoint_flush is None \
             else bool(checkpoint_flush)
         history: list[dict] = []
+        self._anchor = None
         for r in range(start_round, end_round):
             t0 = _now()
             active = np.asarray(active_fn(r), bool)
@@ -412,10 +443,16 @@ class RoundExecutor:
             t1 = _now()
             batch = batch_fn(r, plan)
             t2 = _now()
+            if _tr.TRACING:
+                _tr.emit_span("host/plan", "plan_round", t0, t1, round=int(r))
+                _tr.emit_span("host/build", "build_batch", t1, t2,
+                              round=int(r))
             st = RoundStats(round=r, plan_s=tm - t0, memory_s=t1 - tm,
                             build_s=t2 - t1,
                             in_flight_at_dispatch=len(self._pending),
                             plan=plan, _host_t0=t0, _dispatch_t=t2)
+            if _tr.TRACING:
+                st.start = self._record_start(state)
             state, metrics = self.step(state, batch)
             values, st.done = _stage_metrics(metrics)
             st.dispatch_s = _now() - t2
@@ -432,6 +469,7 @@ class RoundExecutor:
             if due and flush:
                 while self._pending:          # flush: state == round r
                     self._drain_one(history, on_metrics)
+                tc0 = _now() if _tr.TRACING else 0.0
                 if capture_fn is None:
                     checkpoint_fn(r, state)   # the (r, state) contract
                 else:
@@ -439,6 +477,9 @@ class RoundExecutor:
                     # dispatch, so the handle wraps it without copying
                     checkpoint_fn(r, RoundHandle.capture(
                         r, state, meta=capture_fn(r), copy=False))
+                if _tr.TRACING:
+                    _tr.emit_span("host/ckpt", "ckpt_flush", tc0, _now(),
+                                  round=int(r))
                 self._c_ckpt_flush.inc()
             self._service_deferred(checkpoint_fn, now=r)
         while self._pending:
@@ -447,14 +488,42 @@ class RoundExecutor:
         return state, history
 
     # ------------------------------------------------------------------
+    def _record_start(self, state):
+        """A traced dispatch on the card: a timing event on the step's
+        stream before its kernels (None off the card).  The run's first
+        one also records the anchor and waits for it, pinning the card's
+        event clock to the wall clock once."""
+        dev = _card_of(state)
+        if dev is None:
+            return None
+        stream = torch.cuda.current_stream(dev)
+        if self._anchor is None:
+            anchor = torch.cuda.Event(enable_timing=True)
+            anchor.record(stream)
+            anchor.synchronize()
+            self._anchor = (anchor, _now())
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        return start
+
+    def _card_wall(self, event) -> float:
+        """Wall-clock seconds of a completed card event (anchor-based)."""
+        anchor, anchor_wall = self._anchor
+        return anchor_wall + anchor.elapsed_time(event) / 1e3
+
+    # ------------------------------------------------------------------
     def _capture_round(self, r: int, state, capture_fn):
         """Dispatch-time capture for a due no-flush checkpoint: a
         full-state handle (clones in stream order, so round r+1's in-place
         updates cannot reach it) with its copy to the host staged for the
         deferred saver."""
+        tc0 = _now() if _tr.TRACING else 0.0
         meta = capture_fn(r) if capture_fn is not None else None
         self._deferred.append(RoundHandle.capture(r, state, meta=meta,
                                                   to_host=True))
+        if _tr.TRACING:
+            _tr.emit_span("host/capture", "capture_handle", tc0, _now(),
+                          round=int(r))
         self._g_handle_bytes.set(sum(h.nbytes for h in self._deferred))
 
     def _service_deferred(self, checkpoint_fn, *, now=None,
@@ -469,7 +538,11 @@ class RoundExecutor:
                     or (now is not None and now - h.round >= self.window)):
                 break
             self._deferred.popleft()
+            tc0 = _now() if _tr.TRACING else 0.0
             checkpoint_fn(h.round, h)
+            if _tr.TRACING:
+                _tr.emit_span("host/ckpt", "ckpt_deferred", tc0, _now(),
+                              round=int(h.round))
             self._c_ckpt_noflush.inc()
 
     # ------------------------------------------------------------------
@@ -521,6 +594,7 @@ class RoundExecutor:
         output in stream order at any window."""
         if not (plan.fill or plan.spill):
             return state
+        tm0 = _now() if _tr.TRACING else 0.0
         if self.store is None or self.gather_slot is None or \
                 self.scatter_slot is None:
             raise RuntimeError(
@@ -539,6 +613,10 @@ class RoundExecutor:
             # payload itself (the ring slot holds the same values)
             self.store.spill(key, filled[s] if s in filled
                              else self.gather_slot(state, s))
+        if _tr.TRACING:
+            _tr.emit_span("host/memory", "fill_spill", tm0, _now(),
+                          round=int(r), fills=len(plan.fill),
+                          spills=len(plan.spill))
         return state
 
     def _check_cap(self, r: int):
@@ -591,6 +669,8 @@ class RoundExecutor:
         self._h_plan.observe(st.plan_s)
         self._h_build.observe(st.build_s)
         self._h_wall.observe(wall)
+        if _tr.TRACING:
+            self._emit_round(st, t_fetch, t, completion, wall)
         self.stats.append(st)
         history.append(m)
         if on_metrics is not None:
@@ -598,6 +678,27 @@ class RoundExecutor:
         # the full RoundPlan (H×G schedule arrays) is only needed through
         # the drain hook; keep the per-round stats list O(scalars)
         st.plan = None
+
+    def _emit_round(self, st, t_fetch, t, completion, wall):
+        """The drain's spans: ``host/drain``, then the round on ``mesh``
+        (clipped so pipelined rounds tile the lane) mirrored on the lanes
+        of the groups the plan broadcast to.  Off the card the round runs
+        from dispatch to observed completion; on it, between its start and
+        done events (both complete once ``done`` has been waited for)."""
+        _tr.emit_span("host/drain", "drain", t_fetch, t,
+                      round=int(st.round))
+        if st.start is not None and st.done is not None:
+            begin, end = self._card_wall(st.start), self._card_wall(st.done)
+        else:
+            begin = st._dispatch_t
+            end = completion if completion > st._dispatch_t \
+                else st._dispatch_t + wall
+        _tr.emit_span("mesh", "round", begin, end, clip=True,
+                      round=int(st.round))
+        if st.plan is not None and st.plan.bcast_mask is not None:
+            for g in np.nonzero(np.asarray(st.plan.bcast_mask) > 0.5)[0]:
+                _tr.emit_span(f"dev/{int(g)}", "round", begin, end,
+                              clip=True, round=int(st.round))
 
     # ------------------------------------------------------------------
     def summary(self) -> dict:

@@ -16,9 +16,11 @@ A copy of the JAX package's ``core/simulation.py`` with its fleet plane
 the elastic registry.  The same events are pushed in the same order
 (``Sim`` breaks ties in time by push order, so one event more or fewer
 would reorder every later tie), and the metrics are the same, bit for
-bit.  Fault injection and the periodic metrics dumps are refused with the
-ROADMAP item that brings them (A7); the sanitizer and trace emits come
-with the sanitizer and telemetry items.  The baselines
+bit.  With a tracer attached (``repro_torch.obs.trace``) the busy
+intervals, uploads and roster changes become spans and instants in the
+sim domain, in the reference's emission order, so the traces are equal
+too.  Fault injection is refused with the ROADMAP item that brings it
+(A7.3); the sanitizer's emits come with A7.5.  The baselines
 (``core/baselines.py``) run on the same engine and ``Metrics``.
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.fleet.devices import heterogeneous_cluster  # noqa: F401
 from repro_torch.fleet.selection import (SelectionContext, balance_summary,
                                          make_selection_policy)
 from repro_torch.fleet.traces import FleetTrace, install_fleet, resolve_fleet
+from repro_torch.obs import trace as _tr
 
 from .control_plane import ControlPlane
 from .executor import StragglerProfiles
@@ -42,7 +45,6 @@ from .scheduler import Message
 LATER = {
     "faults": (None, "A7, the fault plane"),
     "fault_gate": (None, "A7, the fault plane"),
-    "metrics_every": (0.0, "A7, the metrics dumps"),
 }
 
 
@@ -179,7 +181,12 @@ class Metrics:
         perfectly balanced contributions across the fleet)."""
         return balance_summary(self.dev_consumed)
 
-    # -- busy-interval accounting: the totals and the steady-state sums --
+    # -- busy-interval accounting (one mechanism for every protocol) ----
+    #
+    # Simulators call these instead of touching dev_busy/srv_busy
+    # directly: the interval feeds (a) the totals, (b) the steady-state
+    # accumulators, and (c) — only when a tracer is attached — a span on
+    # the device/server lane.
     def note_warmup_end(self, t: float):
         """The server started real work: everything before is pipeline
         fill.  Idempotent; note_srv_busy calls it defensively."""
@@ -187,6 +194,7 @@ class Metrics:
             self.warmup_t = float(t)
 
     def note_dev_busy(self, k: int, start: float, end: float, *,
+                      name: str = "step", lane: str | None = None,
                       samples: int = 0):
         self.dev_busy[k] += end - start
         if samples:
@@ -196,11 +204,17 @@ class Metrics:
                                            end - max(start, self.warmup_t))
             if samples and end >= self.warmup_t:
                 self.dev_samples_steady += samples
+        if _tr.TRACING:
+            _tr.emit_span(lane if lane is not None else f"dev/{k}",
+                          name, start, end, clip=True)
 
-    def note_srv_busy(self, start: float, end: float):
+    def note_srv_busy(self, start: float, end: float, *,
+                      name: str = "train_batch", lane: str = "srv"):
         self.note_warmup_end(start)
         self.srv_busy += end - start
         self.srv_busy_steady += end - max(start, self.warmup_t)
+        if _tr.TRACING:
+            _tr.emit_span(lane, name, start, end, clip=True)
 
     def steady_summary(self) -> dict:
         """Warmup-excluded idle/throughput stats."""
@@ -293,11 +307,14 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         static identity trace for its ticks.
     registry (optional): an ``ElasticRegistry`` mirroring the roster; a
         fleet run makes one.  Returned on ``Metrics.registry``.
-    faults, fault_gate, metrics_every: the planes of ROADMAP item A7;
-        anything but their default raises ``NotImplementedError``.
+    faults, fault_gate: the fault plane of ROADMAP item A7.3; anything
+        but their default raises ``NotImplementedError``.
+    metrics_every: simulated-seconds cadence for a one-line metrics dump
+        (stdout); 0 disables.  Pure print — scheduling it perturbs no
+        run state.
     """
     refuse_later(LATER, "simulate_fedoptima", faults=faults,
-                 fault_gate=fault_gate, metrics_every=metrics_every)
+                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
@@ -391,6 +408,9 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
             tx = model.act_bytes / bw[k]
             prof.observe_group(k, transfer_s=tx)
             m.bytes_up += model.act_bytes
+            if _tr.TRACING:
+                _tr.emit_span(f"net/{k}", "act_upload", sim.t, sim.t + tx,
+                              clip=True)
             sim.after(tx, act_arrive, k)
         if hooks:
             hooks.device_iter(k, send)
@@ -400,6 +420,9 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
             # end of round: ship device model for aggregation (Alg. 1 l.13)
             tx = model.dev_model_bytes / bw[k]
             m.bytes_up += model.dev_model_bytes
+            if _tr.TRACING:
+                _tr.emit_span(f"net/{k}", "model_upload", sim.t, sim.t + tx,
+                              clip=True)
             sim.after(tx, model_arrive, k, e)
 
     def act_arrive(k):
@@ -452,7 +475,7 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         if se != srv_state["epoch"]:
             return                      # in-service work lost to a crash
         srv_state["cur"] = None
-        m.note_srv_busy(start, sim.t)
+        m.note_srv_busy(start, sim.t, name="aggregate")
         m.aggregations += 1
         if cp.aggregate_arrival(k, versions[k]) > 0.0 and hooks:
             hooks.aggregate(k)
@@ -476,7 +499,7 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         if se != srv_state["epoch"]:
             return                      # in-service work lost to a crash
         srv_state["cur"] = None
-        m.note_srv_busy(start, sim.t)
+        m.note_srv_busy(start, sim.t, name="train_batch")
         m.srv_batches += 1
         m.note_contribution(k)
         prof.observe_server(sim.t - start)
@@ -489,6 +512,8 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
     def on_leave(k):
         running[k] = False
         epoch[k] += 1                 # kill the chain's pending callbacks
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "leave", sim.t)
         flow.on_device_left(k)
         # purge the consumption counter (§3.4.2: a rejoin starts with
         # fresh history); buffered activations still train
@@ -501,6 +526,8 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         if reg is not None:
             reg.rejoin(k, t=sim.t)
             reg.set_bandwidth(k, float(bw[k]))
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "join", sim.t)
         device_start_round(k, H)
 
     def reselect():
@@ -526,6 +553,12 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
     install_fleet(sim, trace, active, bw, on_leave=on_leave,
                   on_rejoin=on_rejoin,
                   after_tick=reselect if sel is not None else None)
+    if metrics_every and metrics_every > 0.0:
+        def _dump_metrics():
+            print(m.to_registry(at=sim.t).dump_line(
+                prefix=f"[sim t={sim.t:.1f}s]"))
+            sim.after(metrics_every, _dump_metrics)
+        sim.after(metrics_every, _dump_metrics)
     sim.run(duration)
     m.duration = duration
     return m

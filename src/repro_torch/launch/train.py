@@ -26,6 +26,14 @@ with the sampled relative speeds, or samples the sim cluster;
 ``ElasticRegistry`` mirrors the roster, and a ``fleet:`` line reports its
 events at the end.
 
+The telemetry plane (``repro_torch.obs``): ``--trace PATH`` records a span
+trace of the run and writes it as Chrome trace-event JSON (pod mode on the
+wall clock, the rounds' ``mesh`` spans from CUDA events on the card; sim
+mode in simulated seconds); ``python -m repro_torch.obs.trace PATH``
+validates it.  ``--metrics-every N`` dumps the metrics registry every N
+rounds (pod) or N simulated seconds (sim) and once at the end;
+``--metrics-out PATH`` appends the final snapshot as one JSON line.
+
 ``--arch`` runs at its smoke reduction unless ``--full`` is given.  The
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
 plain versions.
@@ -61,6 +69,8 @@ event metrics are the JAX package's::
         --duration 30
     python -m repro_torch.launch.train --mode sim --device cpu --devices 4 \
         --duration 30 --fleet-trace flaky --selection refl:0.5
+    python -m repro_torch.launch.train --mode sim --device cpu --devices 4 \
+        --duration 30 --trace sim.json --metrics-every 10
 
 ``--arch`` takes ``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``,
 ``qwen3-32b``, ``gemma2-27b``, ``llama-3.2-vision-90b``, ``whisper-tiny``
@@ -98,10 +108,7 @@ from repro_torch.runtime.elastic import ElasticRegistry
 LATER = {
     "--ckpt-dir": ("ckpt_dir", None, "A3, checkpoints"),
     "--faults": ("faults", None, "A7, the fault plane"),
-    "--trace": ("trace", None, "A7, the telemetry plane"),
     "--sanitize": ("sanitize", False, "A7, the protocol sanitizer"),
-    "--metrics-every": ("metrics_every", 0, "A7, the metrics dumps"),
-    "--metrics-out": ("metrics_out", None, "A7, the metrics dumps"),
 }
 
 
@@ -206,9 +213,11 @@ def pod_config(args) -> F.FedStepConfig:
 def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     """Run ``args.rounds`` rounds; returns {"history", "final", "executor",
     "memory", "consumed", "steady_tok_s", "round_stats", "state",
-    "fleet"}.  ``"fleet"`` holds each round's available groups and cohort
-    (dispatch order), the registry's roster events, the selection policy
-    and the straggler patterns the plans used.  A programmatic
+    "fleet", "registry"}.  ``"registry"`` is the snapshot of the metrics
+    registry behind the executor and the store.  ``"fleet"`` holds each
+    round's available groups and cohort (dispatch order), the registry's
+    roster events, the selection policy and the straggler patterns the
+    plans used.  A programmatic
     caller may set ``args.on_round(r, metrics)``, called as each round
     drains with its metrics as floats, and ``args.profiles``, seeded
     ``StragglerProfiles`` (uniform by default; ``--fleet-tiers`` seeds
@@ -297,6 +306,7 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     on_round = getattr(args, "on_round", None)
     tokens = cfg.global_batch * cfg.seq_len
     prev = None
+    metrics_every = int(getattr(args, "metrics_every", 0) or 0)
 
     def on_metrics(r, m, st):
         nonlocal prev
@@ -312,6 +322,8 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
                   f"s_loss {m['s_loss']:.4f}  active {n_active}/{G}"
                   f"  {tokens / secs:,.0f} tok/s", flush=True)
         prev = st
+        if metrics_every and (r + 1) % metrics_every == 0:
+            print(executor.metrics.dump_line(prefix=f"[round {r+1}]"))
 
     # the init goes straight in: a reference held here would keep the
     # first round's state alive for the whole run
@@ -343,11 +355,17 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
         print(f"fleet: trace={fleet.meta.get('kind', 'custom')}  "
               f"roster events={absences}  "
               f"selection={sel.describe() if sel else 'all'}")
+    if metrics_every:
+        print(executor.metrics.dump_line(prefix="[final]"))
+    if getattr(args, "metrics_out", None):
+        executor.metrics.write_jsonl(args.metrics_out,
+                                     extra={"mode": "pod",
+                                            "rounds": args.rounds})
     produce, reads = profiles.produce(cfg.H), profiles.reads(cfg.H)
     return {"history": history, "final": history[-1] if history else None,
             "executor": xs, "memory": mem, "consumed": consumed,
             "steady_tok_s": steady, "round_stats": executor.stats,
-            "state": state,
+            "state": state, "registry": executor.metrics.snapshot(),
             "fleet": {"available": available, "cohorts": cohorts,
                       "roster_events": absences, "registry": registry_,
                       "selection": sel.describe() if sel else "all",
@@ -418,7 +436,9 @@ def run_sim(args) -> dict:
                                  seed=args.seed, fleet=fleet,
                                  selection=getattr(args, "selection", None),
                                  hooks=learner, control=control,
-                                 profiles=profiles)
+                                 profiles=profiles,
+                                 metrics_every=float(
+                                     getattr(args, "metrics_every", 0) or 0))
     xte, yte = data.x[:512], data.y[:512]
     acc = learner.eval_accuracy(xte, yte)
     # the measured per-device profiles drive a straggler-aware plan: slow
@@ -453,6 +473,13 @@ def run_sim(args) -> dict:
             else "identity"     # selection-only runs get an identity trace
         print(f"fleet: trace={kind}  roster events={absences}  active now "
               f"{len(metrics.registry.active_ids)}/{args.devices}")
+    reg = metrics.to_registry()
+    if getattr(args, "metrics_every", 0):
+        print(reg.dump_line(prefix="[final]"))
+    if getattr(args, "metrics_out", None):
+        reg.write_jsonl(args.metrics_out,
+                        extra={"mode": "sim", "duration": args.duration,
+                               "devices": args.devices})
     return {"accuracy": acc, "srv_idle": metrics.srv_idle_frac,
             "dev_idle": metrics.dev_idle_frac,
             "throughput": metrics.throughput,
@@ -462,7 +489,7 @@ def run_sim(args) -> dict:
             "memory": mem,
             "consumed": metrics.dev_consumed.tolist(),
             "contribution_balance": bal,
-            "steady": steady, "registry": metrics.to_registry().snapshot()}
+            "steady": steady, "registry": reg.snapshot()}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -547,19 +574,46 @@ def build_parser() -> argparse.ArgumentParser:
                         "runs the most-stale half each tick).  Fed the "
                         "Alg. 3 consumption counters + staleness "
                         "accounting; default: every available device")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record a span trace of the run and export Chrome "
+                        "trace-event JSON to PATH (open in Perfetto or "
+                        "chrome://tracing).  Pod mode traces the host loop "
+                        "on the wall clock (the rounds from CUDA events on "
+                        "the card); sim mode traces per-device/server/"
+                        "network lanes in simulated time.  Off = "
+                        "zero-instrumentation run (bit-identical)")
+    p.add_argument("--metrics-every", type=float, default=0,
+                   dest="metrics_every", metavar="N",
+                   help="periodically dump the unified metrics registry: "
+                        "every N rounds (pod) or every N simulated "
+                        "seconds (sim); 0 = final summary only")
+    p.add_argument("--metrics-out", default=None, dest="metrics_out",
+                   metavar="PATH",
+                   help="append the final metrics-registry snapshot to "
+                        "PATH as one JSON line")
     # later slices of the port: refused with NotImplementedError when set
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--faults", default=None)
-    p.add_argument("--trace", default=None)
     p.add_argument("--sanitize", action="store_true")
-    p.add_argument("--metrics-every", type=float, default=0)
-    p.add_argument("--metrics-out", default=None)
     return p
 
 
 def main(argv=None) -> dict:
+    """Parse ``argv`` and run the mode; with ``--trace`` the run is traced
+    (the wall domain in pod mode, simulated seconds in sim mode) and the
+    trace written as Chrome JSON.  Returns the mode's dict."""
     args = build_parser().parse_args(argv)
-    return (run_pod if args.mode == "pod" else run_sim)(args)
+    run = run_pod if args.mode == "pod" else run_sim
+    if not args.trace:
+        return run(args)
+    from repro_torch.obs.trace import Tracer, traced
+    tracer = Tracer(domain="wall" if args.mode == "pod" else "sim")
+    with traced(tracer):
+        out = run(args)
+    tracer.export_chrome(args.trace)
+    print(f"trace: {len(tracer.spans)} spans on "
+          f"{len(tracer.lanes())} lanes -> {args.trace}")
+    return out
 
 
 if __name__ == "__main__":

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.obs import trace as _tr
+from repro_torch.obs.clock import now as _now
 from repro_torch.obs.metrics import MetricsRegistry
 
 
@@ -182,6 +184,9 @@ class ActivationStore:
         self._c_spills.inc()
         self._g_pool_bytes.add(_nbytes(stored))
         self._g_entries.set(len(self._pool))
+        if _tr.TRACING:
+            _tr.emit_instant("host/memory", "spill", _now(), key=key,
+                             entries=len(self._pool))
 
     def fill(self, key: int) -> dict:
         """Pop one entry, each leaf on the device it was spilled from,
@@ -190,6 +195,9 @@ class ActivationStore:
         self._c_fills.inc()
         self._g_pool_bytes.add(-_nbytes(e["payload"]))
         self._g_entries.set(len(self._pool))
+        if _tr.TRACING:
+            _tr.emit_instant("host/memory", "fill", _now(), key=int(key),
+                             entries=len(self._pool))
         return _decode(e["payload"], e["dtypes"], e["devices"])
 
     # ------------------------------------------------------------------

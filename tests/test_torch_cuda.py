@@ -11,8 +11,9 @@ against the CPU.
 
 It also holds the pipelined executor to what only the card shows: its
 handles keep their round across in-place updates, window 2 overlaps host
-work with the card's, a round's dispatch makes no host sync, and the
-tiered store's spill and fill of a ring slot stay on the stream.
+work with the card's, a round's dispatch makes no host sync, a traced
+round's ``mesh`` span comes from its CUDA events, and the tiered store's
+spill and fill of a ring slot stay on the stream.
 
 It also runs the sim-mode FedOptima learner, and each baseline's learner,
 on the card against the CPU (``chip_smoke.sim_card_vs_cpu`` at a tiny
@@ -386,6 +387,49 @@ def test_cuda_window2_overlaps_host_work_with_the_card():
     assert walls[2] <= 0.8 * walls[1], walls
     assert summaries[2]["hidden_host_frac_steady"] > 0.5, summaries[2]
     assert summaries[2]["peak_in_flight"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_traced_rounds_take_their_times_from_events():
+    """Six rounds of about 50 ms on the card and 10 ms of batch building on
+    the host, at window 2, traced: the ``mesh`` spans come from the
+    rounds' CUDA events, so their ends lie apart by ``completion_gap_s``
+    (event to event) within 0.1 ms and each lasts about its round's card
+    time; the values equal the untraced run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA events")
+    from repro_torch.core.executor import RoundExecutor, completion_gap_s
+    from repro_torch.obs.trace import Tracer, traced, validate_chrome_trace
+    cycles = _sleep_cycles(50.0)
+
+    def step(state, batch):
+        torch.cuda._sleep(cycles)
+        state["x"].add_(1.0)
+        return state, {"d_loss": state["x"].sum()}
+
+    def batch_fn(r, plan):
+        time.sleep(0.01)
+        return {}
+
+    def run():
+        ex = RoundExecutor(step, tcp.ControlPlane(2, 1, 2), window=2)
+        _, hist = ex.run({"x": torch.zeros(4, device="cuda")}, 0, 6,
+                         active_fn=lambda r: np.ones(2, bool),
+                         batch_fn=batch_fn)
+        return ex, hist
+
+    _, plain = run()
+    tracer = Tracer(domain="wall")
+    with traced(tracer):
+        ex, hist = run()
+    assert hist == plain == [{"d_loss": 4.0 * (r + 1)} for r in range(6)]
+    mesh = [s for s in tracer.spans if s[0] == "mesh"]
+    assert [s[4]["round"] for s in mesh] == list(range(6))
+    for a, b, sa, sb in zip(mesh, mesh[1:], ex.stats, ex.stats[1:]):
+        assert abs((b[3] - a[3]) - completion_gap_s(sa, sb)) < 1e-4
+    assert all(0.045 < s[3] - s[2] < 0.1 for s in mesh[1:]), mesh
+    assert {f"dev/{g}" for g in range(2)} <= set(tracer.lanes())
+    assert validate_chrome_trace(tracer.to_chrome()) == []
 
 
 @pytest.mark.cuda

@@ -369,9 +369,7 @@ REFUSED = [  # flags, the error, what its message must name
     (["--mode", "sim", "--faults", "random"], NotImplementedError,
      "A7, the fault plane"),
     (["--faults", "random"], NotImplementedError, "A7, the fault plane"),
-    (["--trace", "t"], NotImplementedError, "A7, the telemetry plane"),
     (["--sanitize"], NotImplementedError, "A7, the protocol sanitizer"),
-    (["--metrics-every", "2"], NotImplementedError, "A7, the metrics"),
     (["--window", "-1"], ValueError, "window must be >= 1"),
 ]
 

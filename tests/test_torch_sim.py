@@ -435,8 +435,7 @@ def test_larger_omega_no_less_server_work():
 # ---------------------------------------------------------------------------
 
 PLANE_ARGS = [("faults", "random", "A7, the fault plane"),
-              ("fault_gate", False, "A7, the fault plane"),
-              ("metrics_every", 5.0, "A7, the metrics dumps")]
+              ("fault_gate", False, "A7, the fault plane")]
 
 
 @pytest.mark.parametrize("name,value,item", PLANE_ARGS,
@@ -449,10 +448,7 @@ def test_simulator_refuses_later_planes(name, value, item):
 
 
 SIM_REFUSED = [(["--faults", "random"], "A7, the fault plane"),
-               (["--trace", "t.json"], "A7, the telemetry plane"),
                (["--sanitize"], "A7, the protocol sanitizer"),
-               (["--metrics-every", "5"], "A7, the metrics dumps"),
-               (["--metrics-out", "m.jsonl"], "A7, the metrics dumps"),
                (["--ckpt-dir", "ckpt"], "A3, checkpoints")]
 
 
