@@ -47,14 +47,14 @@ exits non-zero:
    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync fails), and
    the dropped assignments and times printed.
 4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
-   H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m (the
-   same with l_split 6): two rounds with the kernels and two with the plain
+   H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m cut to
+   24 of its 48 layers (``MAIN_CUTS``; the same with l_split 3): two rounds with the kernels and two with the plain
    path (``sdpa_chunked``, ``ssd_chunked``) from the same state, batches
    and plans: the kernels launch as reckoned from H, G and the split and
    the plain path never, losses within 1e-3 relative, params within
    ``PARAMS_TOL`` and finite; the second kernel round profiled; then the
-   driver (``repro_torch.launch.train.run_pod``, three rounds of smollm,
-   two of mamba2) with the kernels at ``--window 1`` and ``--window 2``
+   driver (``repro_torch.launch.train.run_pod``, two rounds of each)
+   with the kernels at ``--window 1`` and ``--window 2``
    in turns (1, 2), each run with every kernel's launches counted over the run (rounds x the per-round count)
    and its peak memory, steady tok/s, host seconds inside ``step()`` per
    round and the executor's summary; the two windows' histories must be
@@ -97,7 +97,8 @@ exits non-zero:
 
 7. sim — the sim-mode FedOptima learner, which runs no kernel of the five
    (their counts must stay 0): (a) ``launch/train.run_sim`` at its
-   defaults on the card (8 devices, 300 simulated seconds, VGG-5 at
+   defaults on the card but ``SIM_RUN_DURATION`` (8 devices, 100
+   simulated seconds, VGG-5 at
    16x16, ω=8, H=10, pool = ω): the flow cap held, accuracy above chance;
    its idle fractions, throughput, accuracy, memory line, balance, wall
    seconds, device and server steps per wall second and peak memory.
@@ -159,7 +160,7 @@ exits non-zero:
    kernels launched as reckoned (156 a round per attention kernel, as in
    phase 4).  (b) ``run_sim`` on the card under ``--fleet-trace flaky
    --fleet-tiers low,mid,high,premium --selection score:0.5``
-   (``FLEET_SIM_FLAGS``; 8 devices, 300 simulated s): its event metrics
+   (``FLEET_SIM_FLAGS``; 8 devices, 100 simulated s): its event metrics
    equal, bit for bit, to the same ``simulate_fedoptima`` call on the host
    with no learner.  (c) FedAsync and SplitFed with their VGG-5 learners
    on the card under one flaky trace at phase 8 (c)'s size (K=4, 20
@@ -184,6 +185,23 @@ exits non-zero:
    untraced and traced (sim domain): equal event metrics, the idle classes
    summing to the horizon for the server and each device, no kernel
    launched.
+
+12. sanitizer — the protocol sanitizer (``repro_torch.analysis.sanitize``):
+   (a) smollm-135m's main path (full width and depth, G=4, batch 8, H=4,
+   seq 1024, l_split 3, the kernels) through ``run_pod`` at window 2 for 4
+   rounds under ``--omega 2 --pool-cap 2 --p-drop 0.3`` and phase 9's
+   stall (``SANITIZE_FLAGS``, ``SANITIZE_STALL``), once plain and once
+   with a sanitizer attached: histories and final params bit-identical, 0
+   violations, a group restored, every kind of ``SANITIZE_POD_KINDS``
+   counted, the kernels launched as reckoned (156 a round per attention
+   kernel); the events by kind and the host seconds per round (plan and
+   ``step()`` dispatch of each run, and the sanitizer's own checks)
+   printed.  (b) ``run_sim`` on the card under ``--fleet-trace flaky`` for
+   60 simulated s, sanitized: 0 violations, departures checked, the event
+   metrics equal to the host run with no learner and no sanitizer.  (c)
+   FedAsync with its VGG-5 learner under phase 10 (c)'s trace, sanitized:
+   0 violations, every ``Metrics`` field equal to the host run's.  (b)
+   and (c) launch no kernel.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -240,9 +258,14 @@ MAIN_ARGS = ["--mode", "pod", "--full", "--groups-per-shard", "4",
              "--use-kernel", "--device", "cuda"]
 MAIN_PATHS = {  # arch: its own flags
     "smollm-135m": ["--arch", "smollm-135m", "--l-split", "3"],
-    "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "6"],
+    "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "3"],
 }
-DRIVER_ROUNDS = {"smollm-135m": 3, "mamba2-780m": 2}   # per driver run
+# Depth cuts of the main paths, as ``ArchConfig.scaled`` keywords: mamba2
+# runs 24 of its 48 layers (3 on the device, 21 on the server, the 1:7
+# split of 6 and 42), at every published width, to keep the script inside
+# its time; smollm runs whole
+MAIN_CUTS = {"mamba2-780m": dict(n_layers=24)}
+DRIVER_ROUNDS = {"smollm-135m": 2, "mamba2-780m": 2}   # per driver run
 # The windows of the driver runs: one turn of each.  The windows'
 # histories are compared, and phase 5 runs both windows again under churn;
 # a timing of one tree against another in paired turns is
@@ -307,7 +330,7 @@ WIDE_DRIVER_ROUNDS = 2
 # served from its path's trained final state, merged (``merge_params``):
 # smollm and mamba2 whole, whisper whole over its 1500 frames (416 + 32 =
 # 448 tokens, its text context), jamba at phase 4c's cuts.
-SERVE = {"smollm-135m": (8, 1024, 32), "mamba2-780m": (8, 1024, 32),
+SERVE = {"smollm-135m": (8, 1024, 16), "mamba2-780m": (8, 1024, 16),
          "whisper-tiny": (8, 416, 32), "jamba-1.5-large-398b": (2, 1024, 16)}
 # Kernel prefill against plain prefill: the last logits and every cache
 # leaf within 1e-3 of the leaf's largest |value| (relative), as the round's
@@ -905,11 +928,15 @@ def _describe(cfg) -> str:
 
 
 def main_setup(arch: str, flags):
-    """(args, cfg) of a main path: its flags, full width and depth."""
+    """(args, cfg) of a main path: its flags, full width, and the depth
+    ``MAIN_CUTS`` gives it (whole where it gives none)."""
     from repro_torch.launch import train
     args = train.build_parser().parse_args(MAIN_ARGS + MAIN_PATHS[arch]
                                            + list(flags))
-    return args, train.pod_config(args)
+    cfg = train.pod_config(args)
+    cuts = MAIN_CUTS.get(arch)
+    return args, (dataclasses.replace(cfg, arch=cfg.arch.scaled(**cuts))
+                  if cuts else cfg)
 
 
 def wide_setup(arch: str, flags):
@@ -1723,6 +1750,9 @@ SIM_MODELS = {  # name: (module, config, l_split, lr)
 }
 SIM_SAMPLES = 1024
 SIM_MODEL_DURATION = 10.0
+# (a): run_sim's defaults but 100 simulated seconds, to keep the script
+# inside its time
+SIM_RUN_DURATION = 100.0
 # the baselines that train the whole model on the device (FullModelLearner);
 # SplitFed, PiPar and OAFL train a split one (SplitLearner)
 FULL_MODEL = ("fl", "fedasync", "fedbuff")
@@ -2090,8 +2120,9 @@ def phase_sim(torch, counters) -> dict:
     t0 = time.perf_counter()
     for c in counters:
         c.reset_launches()
-    # (a) run_sim at its defaults
-    args = train.build_parser().parse_args(["--mode", "sim"])
+    # (a) run_sim at its defaults but the simulated time
+    args = train.build_parser().parse_args(
+        ["--mode", "sim", "--duration", str(SIM_RUN_DURATION)])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
@@ -2337,12 +2368,14 @@ def phase_baselines(torch, counters) -> dict:
 # half the available groups
 FLEET_FLAGS = ["--fleet-trace", "weibull", "--fleet-tiers", "low:3,high:1",
                "--selection", "refl:0.5"]
-FLEET_ROUNDS = 4
-# (b): run_sim's defaults (8 devices, 300 simulated s) under a flaky trace
-# over a fleet sampled from all four tiers, score selection of half
+FLEET_ROUNDS = 3
+# (b): run_sim's defaults (8 devices) for 100 simulated s under a flaky
+# trace over a fleet sampled from all four tiers, score selection of half
+# (the trace has 11 roster events in 100 s, and (a)'s trace a roster
+# change at each of its 3 rounds)
 FLEET_SIM_FLAGS = ["--mode", "sim", "--fleet-trace", "flaky",
                    "--fleet-tiers", "low,mid,high,premium",
-                   "--selection", "score:0.5"]
+                   "--selection", "score:0.5", "--duration", "100"]
 # (c): phase 8 (c)'s size (VGG-5 32x32, K=4, 20 simulated s) under one
 # flaky trace of 12 ticks
 FLEET_BASELINES = ("fedasync", "splitfed")
@@ -2410,23 +2443,18 @@ def fleet_pod(torch, counters) -> dict:
     return {"runs": runs, "attention_per_round": attention}
 
 
-def fleet_sim(torch) -> dict:
-    """(b): ``run_sim`` on the card under ``FLEET_SIM_FLAGS``; the same
-    ``simulate_fedoptima`` call on the host with no learner must give the
-    same event metrics, bit for bit."""
+def host_sim(args) -> tuple[dict, object]:
+    """``run_sim(args)``'s ``simulate_fedoptima`` call on the host with no
+    learner: (the learner-independent part of run_sim's dict, Metrics)."""
     from repro_torch.core.control_plane import ControlPlane
     from repro_torch.core.executor import StragglerProfiles
-    from repro_torch.core.simulation import SimModel, simulate_fedoptima
+    from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
+                                             simulate_fedoptima)
     from repro_torch.fleet import sample_cluster
     from repro_torch.launch import train
-    args = train.build_parser().parse_args(FLEET_SIM_FLAGS)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = train.run_sim(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     omega, H = 8, 10                    # run_sim's defaults, pool = omega
-    cluster = sample_cluster(args.devices, args.fleet_tiers, seed=args.seed)
+    cluster = sample_cluster(args.devices, args.fleet_tiers, seed=args.seed) \
+        if args.fleet_tiers else heterogeneous_cluster(args.devices)
     fleet = train._fleet_trace(args, args.devices, args.duration,
                                interval=max(args.duration / 12.0, 1.0),
                                bw=cluster.dev_bw)
@@ -2448,6 +2476,21 @@ def fleet_sim(torch) -> dict:
             "contribution_balance": m.contribution_balance(),
             "steady": m.steady_summary(),
             "registry": m.to_registry().snapshot()}
+    return host, m
+
+
+def fleet_sim(torch) -> dict:
+    """(b): ``run_sim`` on the card under ``FLEET_SIM_FLAGS``; the same
+    ``simulate_fedoptima`` call on the host with no learner must give the
+    same event metrics, bit for bit."""
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(FLEET_SIM_FLAGS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train.run_sim(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host, m = host_sim(args)
     diff = [k for k in host if out[k] != host[k]]
     events = sum(i.absences for i in m.registry.devices.values())
     print(f"[fleet] (b) run_sim {' '.join(FLEET_SIM_FLAGS[2:])} on "
@@ -2549,12 +2592,12 @@ def phase_fleet(torch, counters) -> dict:
 # ---------------------------------------------------------------------------
 
 # (a): smollm's main path at window 2, untraced and traced
-TELEMETRY_ROUNDS = 4
+TELEMETRY_ROUNDS = 3
 # the mesh spans' ends are card events placed through one anchor: their
 # differences are event-to-event times, as completion_gap_s is (seconds)
 TELEMETRY_GAP_TOL = 1e-4
-# (b): run_sim's defaults for 60 simulated seconds
-TELEMETRY_SIM_DURATION = 60.0
+# (b): run_sim's defaults for 30 simulated seconds
+TELEMETRY_SIM_DURATION = 30.0
 TELEMETRY_DIR = ROOT / "build" / "telemetry"
 
 
@@ -2756,6 +2799,199 @@ def phase_telemetry(torch, counters) -> dict:
     return {"pod": pod, "sim": sim}
 
 
+# ---------------------------------------------------------------------------
+# 12. the protocol sanitizer
+# ---------------------------------------------------------------------------
+
+# (a): smollm's main path at window 2 with a ring of ω=2 slots, a host pool
+# of 2, churn and phase 9's stall (the server reads nothing for
+# SANITIZE_STALL rounds, then drains), so every boundary holds the planner
+# against the store with slots spilled and filled and groups dropped and
+# restored
+SANITIZE_FLAGS = ["--rounds", "4", "--window", "2", "--omega", "2",
+                  "--pool-cap", "2", "--p-drop", "0.3"]
+SANITIZE_STALL = 2
+# the event kinds (a) must reach: the pod path's planner, flow control,
+# scheduler, executor and store (departures and the sim chains are the
+# event simulator's)
+SANITIZE_POD_KINDS = {"cp.plan", "cp.finish", "exec.round", "flow.register",
+                      "flow.grant", "flow.sent", "flow.enqueue",
+                      "flow.dequeue", "sched.add", "store.spill",
+                      "store.fill"}
+# (b): run_sim under a flaky trace for 60 simulated seconds
+SANITIZE_SIM_FLAGS = ["--mode", "sim", "--fleet-trace", "flaky",
+                      "--duration", "60"]
+
+
+def timed_sanitizer():
+    """A ``ProtocolSanitizer`` that also sums the host seconds its checks
+    take (``record``: the mirror, the window and the invariants)."""
+    from repro_torch.analysis.sanitize import ProtocolSanitizer
+
+    class Timed(ProtocolSanitizer):
+        seconds = 0.0
+
+        def record(self, kind, fields):
+            t0 = time.perf_counter()
+            try:
+                super().record(kind, fields)
+            finally:
+                self.seconds += time.perf_counter() - t0
+    return Timed()
+
+
+def sanitize_pod(torch, counters) -> dict:
+    """(a): the pod round under ``SANITIZE_FLAGS`` and the stall, once
+    without and once with the sanitizer attached: bit-identical, 0
+    violations, a restore planned, every kind of ``SANITIZE_POD_KINDS``
+    counted, the kernels launched as reckoned."""
+    from repro_torch.analysis.sanitize import sanitized
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    runs = {}
+    for name in ("plain", "sanitized"):
+        args, cfg = main_setup("smollm-135m", SANITIZE_FLAGS)
+        args.profiles = stalled_profiles(cfg.n_groups, SANITIZE_STALL)
+        if name == "plain":
+            runs[name] = drive(torch, args, cfg, counters, keep_final=True)
+            continue
+        with sanitized(timed_sanitizer()) as san:
+            runs[name] = drive(torch, args, cfg, counters, keep_final=True)
+    per_round, want = launches_per_round(cfg, counters)
+    rounds = args.rounds
+    want_total = {k: n * rounds for k, n in want.items()}
+    plain, run = runs["plain"], runs["sanitized"]
+    same_hist = plain["history"] == run["history"]
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(plain["final"]), tree_leaves(run["final"])))
+    rep = san.report()
+    retention = run["executor"]["retention"]
+    host = {n: [s.plan_s + s.dispatch_s for s in r["round_stats"]]
+            for n, r in runs.items()}
+    mean = {n: statistics.mean(v) for n, v in host.items()}
+    print(f"[sanitize] (a) smollm-135m full width, 30 layers, "
+          f"{' '.join(SANITIZE_FLAGS)}, stall {SANITIZE_STALL} then drain: "
+          f"histories bit-identical {same_hist}, final params bit-identical "
+          f"{same_params} | {rep['events']} events, {rep['n_violations']} "
+          f"violations, by kind {rep['by_kind']} | retention {retention}, "
+          f"memory spills {run['memory']['spills']} fills "
+          f"{run['memory']['fills']} | launches {run['launches']} "
+          f"({per_round} a round per attention kernel)", flush=True)
+    print(f"[sanitize] (a) host seconds per round, plan + step() dispatch: "
+          f"plain {[round(x, 4) for x in host['plain']]} mean "
+          f"{mean['plain']:.4f}, sanitized "
+          f"{[round(x, 4) for x in host['sanitized']]} mean "
+          f"{mean['sanitized']:.4f} (difference "
+          f"{mean['sanitized'] - mean['plain']:+.4f}) | the sanitizer's own "
+          f"checks {san.seconds / rounds * 1e3:.3f} ms a round "
+          f"({rep['events'] / rounds:.1f} events, "
+          f"{san.seconds / max(rep['events'], 1) * 1e6:.2f} us an event) | "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    for name, r in runs.items():
+        if r["launches"] != want_total:
+            raise AssertionError(f"sanitize {name}: launches "
+                                 f"{r['launches']}, want {want_total}")
+        for m in r["history"]:
+            if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
+                raise AssertionError(f"sanitize {name}: non-finite loss "
+                                     f"{m}")
+    if not (same_hist and same_params):
+        raise AssertionError("sanitize: the sanitized pod run differs from "
+                             "the plain one")
+    if rep["n_violations"]:
+        raise AssertionError(f"sanitize: violations {rep['violations']}")
+    missing = SANITIZE_POD_KINDS - set(rep["by_kind"])
+    if missing:
+        raise AssertionError(f"sanitize: the pod run reached no "
+                             f"{sorted(missing)} event")
+    if not retention["restored"]:
+        raise AssertionError(f"sanitize: no plan restored a group "
+                             f"({retention})")
+    return {"launches": run["launches"], "report": rep,
+            "sanitizer_s_per_round": san.seconds / rounds,
+            "host_s_per_round": mean}
+
+
+def sanitize_sim(torch) -> dict:
+    """(b): ``run_sim`` on the card under ``SANITIZE_SIM_FLAGS`` with the
+    sanitizer attached; the same ``simulate_fedoptima`` call on the host
+    with no learner and no sanitizer gives the same event metrics; 0
+    violations and departures seen.  (c): FedAsync with its VGG-5 learner
+    on the card under phase 10 (c)'s trace, sanitized: 0 violations and
+    every ``Metrics`` field equal to the host run's."""
+    from repro_torch.analysis.sanitize import sanitized
+    from repro_torch.core.baselines import REGISTRY
+    from repro_torch.core.learning import ModelAdapter
+    from repro_torch.core.simulation import SimModel, heterogeneous_cluster
+    from repro_torch.fleet import flaky_trace
+    from repro_torch.launch import train
+    from repro_torch.models import cnn
+    args = train.build_parser().parse_args(SANITIZE_SIM_FLAGS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sanitized(timed_sanitizer()) as san:
+        out = train.run_sim(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host, _ = host_sim(args)
+    diff = [k for k in host if out[k] != host[k]]
+    rep = san.report()
+    print(f"[sanitize] (b) run_sim {' '.join(SANITIZE_SIM_FLAGS[2:])} on "
+          f"{args.device}, sanitized: {rep['events']} events, "
+          f"{rep['n_violations']} violations, by kind {rep['by_kind']} | "
+          f"event metrics equal to the unsanitized host run with no "
+          f"learner: {not diff} | the sanitizer's checks "
+          f"{san.seconds:.3f} s of {wall:.3f} s wall", flush=True)
+    if diff or rep["n_violations"]:
+        raise AssertionError(f"sanitize sim: differs in {diff}, violations "
+                             f"{rep['violations']}")
+    if not rep["by_kind"].get("sim.device_left"):
+        raise AssertionError("sanitize sim: no departure was checked")
+    img, K, duration = (SIM_CARD_CPU[k] for k in ("img", "K", "duration"))
+    cfg = cnn.vgg5_config(img_size=img)
+    trace = flaky_trace(K, duration, interval=duration / 12, **FLEET_TRACE)
+    t1 = time.perf_counter()
+    with sanitized() as base_san:
+        m, _, _ = sim_learner_run(torch, ModelAdapter(cnn, cfg),
+                                  _sim_datasets(cfg, K), 1, "cuda", duration,
+                                  protocol="fedasync", fleet=trace)
+    torch.cuda.synchronize()
+    host_m = REGISTRY["fedasync"](SimModel(**SIM_COSTS),
+                                  heterogeneous_cluster(K),
+                                  duration=duration, H=10, fleet=trace)
+    a, b = _metrics_view(m), _metrics_view(host_m)
+    base_diff = [k for k in b if a[k] != b[k]]
+    brep = base_san.report()
+    print(f"[sanitize] (c) fedasync: VGG-5 {img}x{img}, K={K}, {duration} s "
+          f"simulated, phase 10 (c)'s flaky trace, sanitized: "
+          f"{brep['events']} events, {brep['n_violations']} violations, by "
+          f"kind {brep['by_kind']} | every Metrics field equal to the host "
+          f"run: {not base_diff} | {time.perf_counter() - t1:.2f} s",
+          flush=True)
+    if base_diff or brep["n_violations"]:
+        raise AssertionError(f"sanitize fedasync: differs in {base_diff}, "
+                             f"violations {brep['violations']}")
+    return {"sim": rep, "fedasync": brep, "sim_wall_s": wall}
+
+
+def phase_sanitize(torch, counters) -> dict:
+    """(a) the pod round sanitized against plain; (b) run_sim and (c)
+    FedAsync sanitized against the host.  (b) and (c) run no kernel of the
+    five: their counts must stay 0."""
+    t0 = time.perf_counter()
+    pod = sanitize_pod(torch, counters)
+    for c in counters:
+        c.reset_launches()
+    sim = sanitize_sim(torch)
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    if any(launches.values()):
+        raise AssertionError(f"sanitize: a kernel of the five ran in (b) or "
+                             f"(c): {launches}")
+    print(f"[sanitize] kernel launches over (b) and (c): {launches} | phase "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    return {"pod": pod, "sim": sim}
+
+
 def _sim_describe(cfg) -> str:
     if hasattr(cfg, "img_size"):
         return (f"{cfg.img_size}x{cfg.img_size}x{cfg.in_channels}, "
@@ -2818,6 +3054,9 @@ def main() -> int:
     t1 = time.perf_counter()
     telemetry = phase_telemetry(torch, (fa, ssd_k))
     print(f"[time] telemetry: {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    sanitize = phase_sanitize(torch, (fa, ssd_k))
+    print(f"[time] sanitizer: {time.perf_counter() - t1:.0f} s", flush=True)
     served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
               if run["serve"] is not None}
     kernels = []
@@ -2842,7 +3081,9 @@ def main() -> int:
                             "smollm-135m fleet":
                                 fleet["pod"]["runs"][2]["launches"][name],
                             "smollm-135m telemetry":
-                                telemetry["pod"]["launches"][name]},
+                                telemetry["pod"]["launches"][name],
+                            "smollm-135m sanitizer":
+                                sanitize["pod"]["launches"][name]},
                         "serve_launches": {p: n[name]
                                            for p, n in served.items()}})
         if name.startswith("ssd_"):

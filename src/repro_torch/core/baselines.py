@@ -27,14 +27,17 @@ the busy intervals carry the reference's span names and lanes (PiPar's
 overlapped forward on the ``dev/<k>/pipe`` sub-lane) and the churn seams
 emit ``leave``/``join`` instants, so the sim-domain traces are equal too.
 The ``faults=`` and ``fault_gate=`` planes are refused with the ROADMAP
-item that brings them (A7.3), as ``simulate_fedoptima`` refuses them; the
-sanitizer's emits come with A7.5.  ``seed`` is unused, as in the
+item that brings them (A7.3), as ``simulate_fedoptima`` refuses them.
+With a protocol sanitizer attached the async and split loops emit the
+reference's ``sim.*`` chain and roster events (chain events in the split
+loop only without the sync barrier).  ``seed`` is unused, as in the
 reference.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.fleet.traces import install_fleet, resolve_fleet
 from repro_torch.obs import trace as _tr
 
@@ -148,10 +151,16 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
     def on_leave(k):
         running[k] = False
         epoch[k] += 1
+        if _san.TRACING:
+            _san.emit("sim.device_left", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         if _tr.TRACING:
             _tr.emit_instant(f"dev/{k}", "leave", sim.t)
 
     def on_rejoin(k):
+        if _san.TRACING:
+            _san.emit("sim.device_join", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         if _tr.TRACING:
             _tr.emit_instant(f"dev/{k}", "join", sim.t)
         dev_round(k)
@@ -160,6 +169,9 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
         if not active[k] or running[k]:
             return
         running[k] = True
+        if _san.TRACING:
+            _san.emit("sim.chain_start", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         dev_train(k, H, epoch[k])
 
     def dev_train(k, h_left, e):
@@ -217,6 +229,8 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
     def model_back(k, e):
         if epoch[k] != e:
             return      # pre-departure round: the live chain owns the device
+        if _san.TRACING:
+            _san.emit("sim.chain_end", sim=sim, device=int(k), epoch=int(e))
         running[k] = False
         dev_round(k)
 
@@ -285,10 +299,16 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
     def on_leave(k):
         running[k] = False
         epoch[k] += 1
+        if _san.TRACING:
+            _san.emit("sim.device_left", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         if _tr.TRACING:
             _tr.emit_instant(f"dev/{k}", "leave", sim.t)
 
     def on_rejoin(k):
+        if _san.TRACING:
+            _san.emit("sim.device_join", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         if _tr.TRACING:
             _tr.emit_instant(f"dev/{k}", "join", sim.t)
         dev_round(k)
@@ -297,6 +317,12 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
         if not active[k] or running[k]:
             return
         running[k] = True
+        # chain events only under async restarts: the sync barrier resets
+        # ``running`` wholesale, a round (not chain) discipline that the
+        # single-live-chain invariant does not describe
+        if not sync_agg and _san.TRACING:
+            _san.emit("sim.chain_start", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         dev_fwd(k, H, epoch[k])
 
     def dev_fwd(k, h_left, e):
@@ -406,6 +432,8 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
     def model_back(k, e):
         if epoch[k] != e:
             return      # pre-departure round: the live chain owns the device
+        if _san.TRACING:
+            _san.emit("sim.chain_end", sim=sim, device=int(k), epoch=int(e))
         running[k] = False
         dev_round(k)
 

@@ -40,9 +40,9 @@ simulator drives in event order, with the per-arrival staleness hooks
 builds that configuration, whose spill budget is the flow controller's
 arithmetic alone.
 
-A copy of the JAX package's control plane without its plan checkpointing
-(``state_dict``), its advisory prefetch (``plan_round(lookahead=)``,
-``RoundPlan.prefetch``) and its sanitizer and trace emits.
+A copy of the JAX package's control plane, its sanitizer and trace emits
+included, without its plan checkpointing (``state_dict``) and its advisory
+prefetch (``plan_round(lookahead=)``, ``RoundPlan.prefetch``).
 """
 from __future__ import annotations
 
@@ -51,6 +51,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.memory.policy import make_eviction_policy
 from repro_torch.obs import trace as _tr
 from repro_torch.obs.clock import now as _now
@@ -239,6 +240,10 @@ class ControlPlane:
                          bcast_mask=active.astype(np.float32),
                          retire=retire, restore=restore,
                          fill=fill, spill=tuple(self._round_spills))
+        if _san.TRACING:
+            _san.emit("cp.plan", cp=self, plan=plan,
+                      version=int(self.version),
+                      live_slots=self.live_slots, pool_live=self.pool_live)
         if _tr.TRACING:
             _tr.emit_span("host/control", "plan_round", tp0, _now(),
                           version=int(self.version))
@@ -399,6 +404,9 @@ class ControlPlane:
         self.n_rejected += int(active.sum()) - len(accepted)
         if not accepted:
             # every update rejected: no aggregation event, nobody resyncs
+            if _san.TRACING:
+                _san.emit("cp.finish", cp=self, version_before=int(t),
+                          version_after=int(t), n_accepted=0)
             if _tr.TRACING:
                 _tr.emit_span("host/control", "finish_round", tf0, _now(),
                               n_accepted=0)
@@ -406,6 +414,10 @@ class ControlPlane:
         self.version = t + 1
         for g in np.flatnonzero(active):
             self.versions[g] = self.version
+        if _san.TRACING:
+            _san.emit("cp.finish", cp=self, version_before=int(t),
+                      version_after=int(self.version),
+                      n_accepted=len(accepted))
         if _tr.TRACING:
             _tr.emit_span("host/control", "finish_round", tf0, _now(),
                           n_accepted=len(accepted))
@@ -423,11 +435,17 @@ class ControlPlane:
         else:
             self.n_rejected += 1
         self.version = t + 1
+        if _san.TRACING:
+            _san.emit("cp.arrival", cp=self, device=int(k), t_k=int(t_k),
+                      weight=float(w), version_before=int(t))
         return w
 
     def device_synced(self, k: int):
         """Device k received the global model back (Alg. 4 line 20)."""
         self.versions[k] = self.version
+        if _san.TRACING:
+            _san.emit("cp.synced", cp=self, device=int(k),
+                      version=int(self.version))
 
     # ------------------------------------------------------------------
     # introspection

@@ -54,9 +54,14 @@ step's kernels and ``done`` after its metrics copy, placed on the wall
 clock through one anchor event that the first traced dispatch of a run
 records and waits for.  Tracing reads no tensor and changes no value.
 
+With a protocol sanitizer attached (``repro_torch.analysis.sanitize``)
+each dispatch emits ``exec.round`` after the round's ``finish_round``,
+which checks the planner's ring and pool against the store's held keys;
+the event carries host objects only, so it reads no tensor.
+
 The torch form of the JAX package's ``core/executor.py``.  Still to come:
-the fault plane (``faults``) and the sanitizer emits; the store's
-advisory prefetch and the light per-round handles are not ported.
+the fault plane (``faults``); the store's advisory prefetch and the light
+per-round handles are not ported.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.obs import trace as _tr
 from repro_torch.obs.clock import now as _now
 from repro_torch.obs.metrics import MetricsRegistry
@@ -458,6 +464,9 @@ class RoundExecutor:
             st.dispatch_s = _now() - t2
             self.cplane.finish_round(active=active)
             self._check_cap(r)
+            if _san.TRACING:
+                _san.emit("exec.round", cp=self.cplane, store=self.store,
+                          round=int(r), in_flight=len(self._pending))
             self._pending.append((st, values))
             self._g_in_flight.set(len(self._pending))
             due = checkpoint_fn is not None and checkpoint_every and \

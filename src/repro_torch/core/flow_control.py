@@ -16,13 +16,16 @@ the dequeues that bring such a unit back under it.  This is accounting
 only (the event simulator's default budget); no store is involved.  With
 ``pool_cap == 0`` the controller is the strict Eq. 3 one, bit for bit.
 
-A copy of the JAX package's controller without its sanitizer hooks and its
-quarantine path, which come with the fault plane.
+A copy of the JAX package's controller, its sanitizer emits included,
+without its quarantine path (``on_quarantined`` and its
+``flow.quarantine`` emit), which comes with the fault plane.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
+
+from repro_torch.analysis import sanitize as _san
 
 
 @dataclass
@@ -37,6 +40,13 @@ class FlowController:
     grants: deque = field(default_factory=lambda: deque(maxlen=256))
     _rr: list = field(default_factory=list)              # round-robin order
 
+    # test-only mutation hook (no annotation -> NOT a dataclass field):
+    # True re-introduces the leaked-token bug — on_device_left stops
+    # reclaiming the departed device's token/in-flight budget, so the
+    # sanitizer's flow-token-conservation invariant must fire.  Never set
+    # outside tests.
+    _test_skip_reclaim = False
+
     @property
     def cap(self) -> int:
         """Total admission budget: ω + pool_cap."""
@@ -50,6 +60,8 @@ class FlowController:
         self.sender_active[k] = False
         self._rr.append(k)
         self._maybe_grant()
+        if _san.TRACING:
+            _san.emit("flow.register", flow=self, device=k)
 
     def unregister(self, k: int):
         self.on_device_left(k)
@@ -67,6 +79,8 @@ class FlowController:
                 f"cap={self.cap})")
         self.sender_active[k] = False
         self.inflight_by[k] = self.inflight_by.get(k, 0) + 1
+        if _san.TRACING:
+            _san.emit("flow.sent", flow=self, device=k)
 
     def inflight_of(self, k: int) -> int:
         return self.inflight_by.get(k, 0)
@@ -76,31 +90,39 @@ class FlowController:
         """Admit an arriving activation batch; False for an unaccounted
         arrival (its sender's budget was reclaimed), which must be dropped."""
         n = self.inflight_by.get(k, 0)
-        if n == 0:
-            return False
-        if n == 1:
-            self.inflight_by.pop(k)
-        else:
-            self.inflight_by[k] = n - 1
-        self.buffered += 1
-        if self.buffered > self.omega:
-            self.n_spilled += 1    # admitted into the spill tier
-        self._maybe_grant()
-        return True
+        accepted = n > 0
+        if accepted:
+            if n == 1:
+                self.inflight_by.pop(k)
+            else:
+                self.inflight_by[k] = n - 1
+            self.buffered += 1
+            if self.buffered > self.omega:
+                self.n_spilled += 1    # admitted into the spill tier
+            self._maybe_grant()
+        if _san.TRACING:
+            _san.emit("flow.enqueue", flow=self, device=k, accepted=accepted,
+                      registered=k in self.sender_active)
+        return accepted
 
     def on_dequeue(self, k: int):
         if self.buffered > self.omega:
             self.n_filled += 1     # a spilled unit moves up a tier
         self.buffered = max(0, self.buffered - 1)
         self._maybe_grant()
+        if _san.TRACING:
+            _san.emit("flow.dequeue", flow=self, device=k)
 
     def on_device_left(self, k: int):
         """Reclaim a dropped device's token and in-flight sends."""
-        self.sender_active.pop(k, None)
-        self.inflight_by.pop(k, None)
-        if k in self._rr:
-            self._rr.remove(k)
+        if not self._test_skip_reclaim:
+            self.sender_active.pop(k, None)
+            self.inflight_by.pop(k, None)
+            if k in self._rr:
+                self._rr.remove(k)
         self._maybe_grant()
+        if _san.TRACING:
+            _san.emit("flow.device_left", flow=self, device=k)
 
     # -- invariant-preserving grant --
     @property
@@ -128,6 +150,8 @@ class FlowController:
                 self.sender_active[k] = True
                 self.grants.append(k)
                 scanned = 0          # re-scan: more room may remain
+                if _san.TRACING:
+                    _san.emit("flow.grant", flow=self, device=k)
 
     @property
     def within_cap(self) -> bool:

@@ -6,7 +6,7 @@ get():  models first (priority); else the activation queue of the device
 
 The counter-based policy prevents fast devices from dominating server-side
 training (Challenge 3).  A FIFO policy is included for the §6.5.2 ablation.
-A copy of the JAX package's scheduler without its sanitizer hooks.  The
+A copy of the JAX package's scheduler, its sanitizer emits included.  The
 pod path carries ring slots in ``content`` (the tiered store withdraws a
 spilled slot's messages and puts them back on fill); the event simulator
 also stamps each activation with its size and arrival time.
@@ -16,6 +16,8 @@ from __future__ import annotations
 from collections import deque
 from dataclasses import dataclass
 from typing import Any
+
+from repro_torch.analysis import sanitize as _san
 
 
 @dataclass
@@ -50,17 +52,22 @@ class TaskScheduler:
             self.counters[k] = 0
         self.q_act.setdefault(k, deque())
         self.counters.setdefault(k, 0)
+        if _san.TRACING:
+            _san.emit("sched.add", sched=self, device=k)
 
     def remove_device(self, k: int):
         """Departure (§3.4.2): buffered activations still drain through
         ``get`` under the device's accumulated counter; counter and queue
         are purged once drained."""
-        if not self.q_act.get(k):
+        drained = not self.q_act.get(k)
+        if drained:
             self.q_act.pop(k, None)
             self.counters.pop(k, None)
             self._removed.discard(k)
         else:
             self._removed.add(k)
+        if _san.TRACING:
+            _san.emit("sched.remove", sched=self, device=k, drained=drained)
 
     # -- Alg. 2 --
     def put(self, m: Message):
@@ -84,6 +91,8 @@ class TaskScheduler:
             self.q_act.pop(k, None)
             self.counters.pop(k, None)
             self._removed.discard(k)
+            if _san.TRACING:
+                _san.emit("sched.purge", sched=self, device=k)
 
     # -- Alg. 3 --
     def get(self) -> Message | None:

@@ -19,8 +19,11 @@ would reorder every later tie), and the metrics are the same, bit for
 bit.  With a tracer attached (``repro_torch.obs.trace``) the busy
 intervals, uploads and roster changes become spans and instants in the
 sim domain, in the reference's emission order, so the traces are equal
-too.  Fault injection is refused with the ROADMAP item that brings it
-(A7.3); the sanitizer's emits come with A7.5.  The baselines
+too.  With a protocol sanitizer attached
+(``repro_torch.analysis.sanitize``) the device chains and the roster
+changes emit the reference's ``sim.*`` events, field for field, so the
+event streams are equal as well.  Fault injection is refused with the
+ROADMAP item that brings it (A7.3).  The baselines
 (``core/baselines.py``) run on the same engine and ``Metrics``.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.fleet.devices import heterogeneous_cluster  # noqa: F401
 from repro_torch.fleet.selection import (SelectionContext, balance_summary,
                                          make_selection_policy)
@@ -46,6 +50,13 @@ LATER = {
     "faults": (None, "A7, the fault plane"),
     "fault_gate": (None, "A7, the fault plane"),
 }
+
+# test-only mutation hook: True re-introduces the churn-flap bug — the
+# per-device epoch check in ``model_return`` is skipped, so a
+# pre-departure round's return restarts the device on top of its rejoined
+# chain and the sanitizer's single-live-chain invariant must fire.  Never
+# set outside tests.
+_TEST_SKIP_EPOCH_CHECK = False
 
 
 def refuse_later(table: dict, call: str, **planes) -> None:
@@ -389,6 +400,9 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         if not active[k] or not selected[k] or running[k]:
             return
         running[k] = True
+        if _san.TRACING:
+            _san.emit("sim.chain_start", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         device_iter(k, h_left, epoch[k])
 
     def device_iter(k, h_left, e):
@@ -488,10 +502,12 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
 
     def model_return(k, e):
         cp.device_synced(k)
-        if epoch[k] != e:
+        if epoch[k] != e and not _TEST_SKIP_EPOCH_CHECK:
             # a pre-departure round's model came back after the device
             # left: syncing is fine, but this return must not restart it
             return
+        if _san.TRACING:
+            _san.emit("sim.chain_end", sim=sim, device=int(k), epoch=int(e))
         running[k] = False
         device_start_round(k, H)
 
@@ -512,6 +528,9 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
     def on_leave(k):
         running[k] = False
         epoch[k] += 1                 # kill the chain's pending callbacks
+        if _san.TRACING:
+            _san.emit("sim.device_left", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         if _tr.TRACING:
             _tr.emit_instant(f"dev/{k}", "leave", sim.t)
         flow.on_device_left(k)
@@ -526,6 +545,9 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         if reg is not None:
             reg.rejoin(k, t=sim.t)
             reg.set_bandwidth(k, float(bw[k]))
+        if _san.TRACING:
+            _san.emit("sim.device_join", sim=sim, device=int(k),
+                      epoch=int(epoch[k]))
         if _tr.TRACING:
             _tr.emit_instant(f"dev/{k}", "join", sim.t)
         device_start_round(k, H)

@@ -34,6 +34,12 @@ validates it.  ``--metrics-every N`` dumps the metrics registry every N
 rounds (pod) or N simulated seconds (sim) and once at the end;
 ``--metrics-out PATH`` appends the final snapshot as one JSON line.
 
+``--sanitize`` runs either mode under the protocol sanitizer
+(``repro_torch.analysis.sanitize``): the control plane's events are
+checked online against the seven invariants, a violation aborts the run
+with the offending event window, and a ``sanitizer: N events checked, V
+violations`` line closes the run.  It composes with ``--trace``.
+
 ``--arch`` runs at its smoke reduction unless ``--full`` is given.  The
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
 plain versions.
@@ -108,7 +114,6 @@ from repro_torch.runtime.elastic import ElasticRegistry
 LATER = {
     "--ckpt-dir": ("ckpt_dir", None, "A3, checkpoints"),
     "--faults": ("faults", None, "A7, the fault plane"),
-    "--sanitize": ("sanitize", False, "A7, the protocol sanitizer"),
 }
 
 
@@ -591,19 +596,20 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="PATH",
                    help="append the final metrics-registry snapshot to "
                         "PATH as one JSON line")
+    p.add_argument("--sanitize", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="run under the protocol sanitizer "
+                        "(repro_torch.analysis.sanitize): control-plane "
+                        "events are checked online against the invariant "
+                        "catalogue and any violation aborts the run with "
+                        "the offending event window")
     # later slices of the port: refused with NotImplementedError when set
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--faults", default=None)
-    p.add_argument("--sanitize", action="store_true")
     return p
 
 
-def main(argv=None) -> dict:
-    """Parse ``argv`` and run the mode; with ``--trace`` the run is traced
-    (the wall domain in pod mode, simulated seconds in sim mode) and the
-    trace written as Chrome JSON.  Returns the mode's dict."""
-    args = build_parser().parse_args(argv)
-    run = run_pod if args.mode == "pod" else run_sim
+def _run_traced(run, args) -> dict:
     if not args.trace:
         return run(args)
     from repro_torch.obs.trace import Tracer, traced
@@ -613,6 +619,26 @@ def main(argv=None) -> dict:
     tracer.export_chrome(args.trace)
     print(f"trace: {len(tracer.spans)} spans on "
           f"{len(tracer.lanes())} lanes -> {args.trace}")
+    return out
+
+
+def main(argv=None) -> dict:
+    """Parse ``argv`` and run the mode; with ``--trace`` the run is traced
+    (the wall domain in pod mode, simulated seconds in sim mode) and the
+    trace written as Chrome JSON; with ``--sanitize`` it runs under the
+    protocol sanitizer, whose report joins the returned dict as
+    ``"sanitizer"``.  The two seams compose.  Returns the mode's dict."""
+    args = build_parser().parse_args(argv)
+    run = run_pod if args.mode == "pod" else run_sim
+    if not args.sanitize:
+        return _run_traced(run, args)
+    from repro_torch.analysis.sanitize import sanitized
+    with sanitized() as san:
+        out = _run_traced(run, args)
+    rep = san.report()
+    print(f"sanitizer: {rep['events']} events checked, "
+          f"{rep['n_violations']} violations")
+    out["sanitizer"] = rep
     return out
 
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import sanitize as _san
 from repro_torch.obs import trace as _tr
 from repro_torch.obs.clock import now as _now
 from repro_torch.obs.metrics import MetricsRegistry
@@ -184,6 +185,9 @@ class ActivationStore:
         self._c_spills.inc()
         self._g_pool_bytes.add(_nbytes(stored))
         self._g_entries.set(len(self._pool))
+        if _san.TRACING:
+            _san.emit("store.spill", store=self, key=key,
+                      entries=len(self._pool))
         if _tr.TRACING:
             _tr.emit_instant("host/memory", "spill", _now(), key=key,
                              entries=len(self._pool))
@@ -195,6 +199,9 @@ class ActivationStore:
         self._c_fills.inc()
         self._g_pool_bytes.add(-_nbytes(e["payload"]))
         self._g_entries.set(len(self._pool))
+        if _san.TRACING:
+            _san.emit("store.fill", store=self, key=int(key),
+                      entries=len(self._pool))
         if _tr.TRACING:
             _tr.emit_instant("host/memory", "fill", _now(), key=int(key),
                              entries=len(self._pool))

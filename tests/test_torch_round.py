@@ -369,7 +369,6 @@ REFUSED = [  # flags, the error, what its message must name
     (["--mode", "sim", "--faults", "random"], NotImplementedError,
      "A7, the fault plane"),
     (["--faults", "random"], NotImplementedError, "A7, the fault plane"),
-    (["--sanitize"], NotImplementedError, "A7, the protocol sanitizer"),
     (["--window", "-1"], ValueError, "window must be >= 1"),
 ]
 

@@ -448,7 +448,6 @@ def test_simulator_refuses_later_planes(name, value, item):
 
 
 SIM_REFUSED = [(["--faults", "random"], "A7, the fault plane"),
-               (["--sanitize"], "A7, the protocol sanitizer"),
                (["--ckpt-dir", "ckpt"], "A3, checkpoints")]
 
 
