@@ -48,7 +48,7 @@ exits non-zero:
    the dropped assignments and times printed.
 4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m cut to
-   24 of its 48 layers (``MAIN_CUTS``; the same with l_split 3): two rounds with the kernels and two with the plain
+   16 of its 48 layers (``MAIN_CUTS``; l_split 2, its 1:7 split): two rounds with the kernels and two with the plain
    path (``sdpa_chunked``, ``ssd_chunked``) from the same state, batches
    and plans: the kernels launch as reckoned from H, G and the split and
    the plain path never, losses within 1e-3 relative, params within
@@ -203,6 +203,24 @@ exits non-zero:
    0 violations, every ``Metrics`` field equal to the host run's.  (b)
    and (c) launch no kernel.
 
+13. checkpoints — the checkpoint store (``repro_torch.checkpoint.store``)
+   on smollm-135m's main path (full width and depth, G=4, batch 8, H=4,
+   seq 1024, l_split 3, ω=1, the kernels) under ``--p-drop 0.3`` at pool
+   0, a snapshot every ``CKPT_EVERY`` rounds into ``CKPT_DIR`` (its free
+   space checked and printed first; removed afterwards): ``CKPT_ROUNDS``
+   rounds unbroken at window 2, then for each of ``CKPT_CASES`` ((a)
+   window 2 without flush, (b) window 1 with ``--ckpt-flush``) half the
+   rounds and a rerun of the command that resumes from the newest
+   verified snapshot: the histories and every leaf of the final state
+   bit-identical to the unbroken run's, a snapshot holding a retained
+   group, the kernels launched as reckoned (156 a round per attention
+   kernel) in every run.  Printed: a snapshot's bytes reckoned from the
+   state's leaves and on disk, the retained groups each holds, the
+   seconds of each save (host copy, leaves to numpy, CRC32, write and
+   fsync), of each resume (verify, restore onto the card),
+   ``handle_bytes_peak``, and the rounds' wall times with a save due and
+   without.
+
 Each part's seconds are printed on its ``[time]`` line.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -258,13 +276,13 @@ MAIN_ARGS = ["--mode", "pod", "--full", "--groups-per-shard", "4",
              "--use-kernel", "--device", "cuda"]
 MAIN_PATHS = {  # arch: its own flags
     "smollm-135m": ["--arch", "smollm-135m", "--l-split", "3"],
-    "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "3"],
+    "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "2"],
 }
 # Depth cuts of the main paths, as ``ArchConfig.scaled`` keywords: mamba2
-# runs 24 of its 48 layers (3 on the device, 21 on the server, the 1:7
+# runs 16 of its 48 layers (2 on the device, 14 on the server, the 1:7
 # split of 6 and 42), at every published width, to keep the script inside
 # its time; smollm runs whole
-MAIN_CUTS = {"mamba2-780m": dict(n_layers=24)}
+MAIN_CUTS = {"mamba2-780m": dict(n_layers=16)}
 DRIVER_ROUNDS = {"smollm-135m": 2, "mamba2-780m": 2}   # per driver run
 # The windows of the driver runs: one turn of each.  The windows'
 # histories are compared, and phase 5 runs both windows again under churn;
@@ -328,7 +346,7 @@ WIDE_NOTES = {
 WIDE_DRIVER_ROUNDS = 2
 # Phase 6, serving: arch -> (batch, prompt length, new tokens).  Each is
 # served from its path's trained final state, merged (``merge_params``):
-# smollm and mamba2 whole, whisper whole over its 1500 frames (416 + 32 =
+# smollm whole, mamba2 at its depth cut, whisper whole over its 1500 frames (416 + 32 =
 # 448 tokens, its text context), jamba at phase 4c's cuts.
 SERVE = {"smollm-135m": (8, 1024, 16), "mamba2-780m": (8, 1024, 16),
          "whisper-tiny": (8, 416, 32), "jamba-1.5-large-398b": (2, 1024, 16)}
@@ -1233,7 +1251,7 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
     from repro_torch.core.executor import completion_gap_s
     from repro_torch.launch import train
     from repro_torch.models.common import tree_map
-    rounds, tokens = args.rounds, cfg.global_batch * cfg.seq_len
+    tokens = cfg.global_batch * cfg.seq_len
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1246,6 +1264,7 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
     launches = {k: v for c in counters for k, v in c.launches.items()}
     peak = torch.cuda.max_memory_allocated()
     stats, xs = out["round_stats"], out["executor"]
+    rounds = len(out["history"])      # a resumed run runs the rest only
     per_round = [tokens / completion_gap_s(a, b)
                  for a, b in zip(stats, stats[1:])]
     tag = f"[drive] {cfg.arch.name} --window {args.window}" + \
@@ -2368,11 +2387,10 @@ def phase_baselines(torch, counters) -> dict:
 # half the available groups
 FLEET_FLAGS = ["--fleet-trace", "weibull", "--fleet-tiers", "low:3,high:1",
                "--selection", "refl:0.5"]
-FLEET_ROUNDS = 3
+FLEET_ROUNDS = 2      # the trace has roster events (4 at G=4, seed 0)
 # (b): run_sim's defaults (8 devices) for 100 simulated s under a flaky
 # trace over a fleet sampled from all four tiers, score selection of half
-# (the trace has 11 roster events in 100 s, and (a)'s trace a roster
-# change at each of its 3 rounds)
+# (the trace has 11 roster events in 100 s)
 FLEET_SIM_FLAGS = ["--mode", "sim", "--fleet-trace", "flaky",
                    "--fleet-tiers", "low,mid,high,premium",
                    "--selection", "score:0.5", "--duration", "100"]
@@ -2591,8 +2609,9 @@ def phase_fleet(torch, counters) -> dict:
 # 11. the telemetry plane
 # ---------------------------------------------------------------------------
 
-# (a): smollm's main path at window 2, untraced and traced
-TELEMETRY_ROUNDS = 3
+# (a): smollm's main path at window 2, untraced and traced (2 rounds: one
+# steady round, one gap between rounds)
+TELEMETRY_ROUNDS = 2
 # the mesh spans' ends are card events placed through one anchor: their
 # differences are event-to-event times, as completion_gap_s is (seconds)
 TELEMETRY_GAP_TOL = 1e-4
@@ -2992,6 +3011,260 @@ def phase_sanitize(torch, counters) -> dict:
     return {"pod": pod, "sim": sim}
 
 
+# Phase 13, checkpoints: smollm's main path (phase 4's config, the
+# kernels) under churn at pool 0, a snapshot every CKPT_EVERY rounds into
+# CKPT_DIR (gitignored, inside the checkout); CKPT_ROUNDS rounds unbroken
+# against CKPT_ROUNDS / 2 and a rerun of the command to CKPT_ROUNDS, for
+# each of CKPT_CASES.  Windows and flush do not change values (phases 4b,
+# 5), so case (b)'s resumed run is held against (a)'s unbroken one.
+CKPT_FLAGS = ["--p-drop", "0.3"]
+CKPT_EVERY = 2
+CKPT_ROUNDS = 4
+CKPT_CASES = {"a": ["--window", "2"], "b": ["--window", "1", "--ckpt-flush"]}
+CKPT_DIR = ROOT / "build" / "ckpt"
+
+
+class CkptTimers:
+    """Host seconds of the checkpoint path, by wrapping its parts while
+    the phase runs: per save the host copy (``RoundHandle.host_tree``: the
+    wait for the staged copy off the card), the leaves to numpy
+    (``store._flatten_with_paths``), the CRC32s (``store._checksums``)
+    and the rest of ``store.save`` (the npz writes, their fsyncs, the
+    rename); per resume the verification (``latest_verified_step``: every
+    leaf read and CRC-checked) and the restore onto the card."""
+
+    def __init__(self):
+        self.saves, self.resumes = [], []
+        self._acc = None
+
+    def _timed(self, fn, part):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                if self._acc is not None:
+                    self._acc[part] = self._acc.get(part, 0.0) + dt
+        return wrapped
+
+    def __enter__(self):
+        from repro_torch.checkpoint import store
+        from repro_torch.core.handles import RoundHandle
+        self._orig = [(store, n, getattr(store, n)) for n in (
+            "_flatten_with_paths", "_checksums", "save",
+            "latest_verified_step", "restore", "restore_extras")] + \
+            [(RoundHandle, "host_tree", RoundHandle.host_tree)]
+        timers = self
+        store._flatten_with_paths = self._timed(store._flatten_with_paths,
+                                                "to_numpy")
+        store._checksums = self._timed(store._checksums, "crc")
+        save, host_tree = store.save, RoundHandle.host_tree
+
+        def timed_save(*a, **kw):
+            timers._acc = {}
+            t0 = time.perf_counter()
+            out = save(*a, **kw)
+            acc, timers._acc = timers._acc, None
+            acc["save"] = time.perf_counter() - t0
+            acc["write_fsync"] = acc["save"] - acc.get("to_numpy", 0.0) - \
+                acc.get("crc", 0.0)
+            timers.saves[-1].update(acc)
+            return out
+
+        def timed_host_tree(handle):
+            t0 = time.perf_counter()
+            out = host_tree(handle)
+            timers.saves.append({"round": handle.round,
+                                 "host_copy": time.perf_counter() - t0})
+            return out
+
+        def resume_part(fn, part, new=False):
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if new:
+                    timers.resumes.append({})
+                timers.resumes[-1][part] = timers.resumes[-1].get(
+                    part, 0.0) + time.perf_counter() - t0
+                return out
+            return wrapped
+        store.save = timed_save
+        RoundHandle.host_tree = timed_host_tree
+        store.latest_verified_step = resume_part(store.latest_verified_step,
+                                                 "verify", new=True)
+        store.restore = resume_part(store.restore, "restore")
+        store.restore_extras = resume_part(store.restore_extras, "restore")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+        return False
+
+
+def _snapshot_facts(d: Path) -> list:
+    """Per snapshot in ``d``: its step, bytes on disk, and the retained
+    groups it holds."""
+    out = []
+    for name in sorted(os.listdir(d)):
+        snap = d / name
+        with open(snap / "tree.json") as f:
+            man = json.load(f)
+        held = man["metadata"]["control_plane"]["retention"]["versions"]
+        out.append({"step": man["step"], "groups_held": sorted(map(int, held)),
+                    "disk_bytes": sum(p.stat().st_size
+                                      for p in snap.iterdir())})
+    return out
+
+
+def _snapshot_bytes(torch, state) -> int:
+    """A snapshot's arrays reckoned from the state's leaves (int64 at the
+    int32 the store writes); each retained group adds its dev/aux rows."""
+    from repro_torch.models.common import tree_leaves
+    return sum(x.numel() * (4 if x.dtype == torch.int64
+                            else x.element_size())
+               for x in tree_leaves(state))
+
+
+def phase_checkpoint(torch, counters) -> dict:
+    """Phase 13 (see the module docstring): save, tear down, resume, on
+    the card, against the unbroken run."""
+    import shutil
+
+    from repro_torch.core import fedopt_step as F
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    flags = CKPT_FLAGS + ["--ckpt-every", str(CKPT_EVERY)]
+    _, cfg = main_setup("smollm-135m", flags)
+    per_round, want = launches_per_round(cfg, counters)
+    probe = F.init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                               cfg)
+    group_bytes = sum(x[0].numel() * x.element_size() for k in ("dev", "aux")
+                      for x in tree_leaves(probe[k]))
+    state_bytes = _snapshot_bytes(torch, probe)
+    del probe
+    # the store keeps steps 2 and 4 of a run; at most G - 1 groups are
+    # retained (a roster keeps one group at least)
+    free = shutil.disk_usage(CKPT_DIR).free
+    need = 2 * (state_bytes + (cfg.n_groups - 1) * group_bytes)
+    print(f"[ckpt] {CKPT_DIR}: {free / 1e9:.2f} GB free; a snapshot "
+          f"{state_bytes / 1e9:.4f} GB reckoned from the state's leaves + "
+          f"{group_bytes / 1e9:.4f} GB a retained group; two at once need "
+          f"up to {need / 1e9:.2f} GB", flush=True)
+    if free < need:
+        raise RuntimeError(f"checkpoints: {free / 1e9:.2f} GB free under "
+                           f"{CKPT_DIR}, {need / 1e9:.2f} GB needed")
+
+    def run(case, d, rounds, keep_state=False):
+        args, cfg_ = main_setup("smollm-135m", flags + CKPT_CASES[case] + [
+            "--rounds", str(rounds), "--ckpt-dir", str(d)])
+        with CkptTimers() as timers:
+            out = drive(torch, args, cfg_, counters, keep_state=keep_state)
+        ran = len(out["history"])
+        if out["launches"] != {k: n * ran for k, n in want.items()}:
+            raise AssertionError(f"ckpt ({case}): launches {out['launches']}"
+                                 f", want {per_round} a round x {ran}")
+        for m in out["history"]:
+            if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
+                raise AssertionError(f"ckpt ({case}): non-finite loss {m}")
+        return out, timers
+
+    def round_walls(out):
+        """Each round's wall (completion gap; round 1 from its planning),
+        split by whether a save fell due at it."""
+        from repro_torch.core.executor import completion_gap_s
+        st = out["round_stats"]
+        walls = [st[0].plan_s + st[0].build_s + st[0].round_wall_s] + \
+            [completion_gap_s(a, b) for a, b in zip(st, st[1:])]
+        due = [(s.round + 1) % CKPT_EVERY == 0 for s in st]
+        return walls, due
+
+    results, saves, resumes, walls = {}, [], [], []
+    unbroken_dir = CKPT_DIR / "unbroken"
+    unbroken, tm = run("a", unbroken_dir, CKPT_ROUNDS, keep_state=True)
+    saves += tm.saves
+    walls.append(round_walls(unbroken))
+    facts = _snapshot_facts(unbroken_dir)
+    held = max(len(f["groups_held"]) for f in facts)
+    print(f"[ckpt] unbroken (a) {' '.join(CKPT_CASES['a'])}, "
+          f"{CKPT_ROUNDS} rounds: snapshots {facts} | handle_bytes_peak "
+          f"{unbroken['executor']['handle_bytes_peak']}", flush=True)
+    shutil.rmtree(unbroken_dir)
+    for case in CKPT_CASES:
+        d = CKPT_DIR / case
+        first, tm1 = run(case, d, CKPT_ROUNDS // 2)
+        rest, tm2 = run(case, d, CKPT_ROUNDS, keep_state=True)
+        saves += tm1.saves + tm2.saves
+        resumes += tm2.resumes
+        walls += [round_walls(first), round_walls(rest)]
+        same_hist = first["history"] + rest["history"] == \
+            unbroken["history"]
+        la, lb = tree_leaves(rest["state"]), tree_leaves(unbroken["state"])
+        same_state = len(la) == len(lb) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(la, lb))
+        facts = _snapshot_facts(d)
+        results[case] = {"history": same_hist, "state": same_state,
+                         "snapshots": facts,
+                         "handle_bytes_peak": max(
+                             first["executor"]["handle_bytes_peak"],
+                             rest["executor"]["handle_bytes_peak"]),
+                         "launches": rest["launches"]}
+        print(f"[ckpt] ({case}) {' '.join(CKPT_CASES[case])}: "
+              f"{CKPT_ROUNDS // 2} rounds, then the rerun resumed to "
+              f"{CKPT_ROUNDS}: histories bit-identical to the unbroken run "
+              f"{same_hist}, every leaf of the final state bit-identical "
+              f"{same_state} | snapshots {facts} | handle_bytes_peak "
+              f"{results[case]['handle_bytes_peak']} | launches of the "
+              f"resumed run {rest['launches']}", flush=True)
+        del rest
+        shutil.rmtree(d)
+        if not (same_hist and same_state):
+            raise AssertionError(f"checkpoints ({case}): the resumed run "
+                                 "differs from the unbroken one")
+        if not resumes or "restore" not in resumes[-1]:
+            raise AssertionError(f"checkpoints ({case}): the rerun did not "
+                                 "restore a snapshot")
+    if not any(f["groups_held"] for r in results.values()
+               for f in r["snapshots"]):
+        raise AssertionError("checkpoints: no snapshot held a retained "
+                             "group")
+    mean = lambda xs: statistics.mean(xs) if xs else float("nan")
+    parts = ("host_copy", "to_numpy", "crc", "write_fsync", "save")
+    per_part = {p: [s[p] for s in saves if p in s] for p in parts}
+    # a run's first round includes its warm-up: left out of the means
+    due = [w for ws, ds in walls for w, d in zip(ws[1:], ds[1:]) if d]
+    not_due = [w for ws, ds in walls for w, d in zip(ws[1:], ds[1:])
+               if not d]
+    # a save's host seconds land in a later round's wall: with flush in
+    # the next round's (the save runs before its dispatch), without it
+    # wherever the executor services the deferred save
+    after = [w for ws, ds in walls for w, d in zip(ws[1:], ds) if d]
+    print("[ckpt] round wall s by run (* a save fell due at the round): "
+          + " | ".join(" ".join(f"{w:.3f}{'*' if d else ''}"
+                                for w, d in zip(ws, ds))
+                       for ws, ds in walls), flush=True)
+    print(f"[ckpt] {len(saves)} saves, seconds each: " + ", ".join(
+        f"{p} {[round(x, 4) for x in per_part[p]]} mean "
+        f"{mean(per_part[p]):.4f}" for p in parts), flush=True)
+    print(f"[ckpt] resumes: verify (every leaf read, CRC-checked) "
+          f"{[round(r['verify'], 4) for r in resumes]} s, restore onto the "
+          f"card {[round(r.get('restore', 0.0), 4) for r in resumes]} s | "
+          f"round wall s after the first, a save due "
+          f"{[round(x, 3) for x in due]} mean {mean(due):.3f}, none due "
+          f"{[round(x, 3) for x in not_due]} mean {mean(not_due):.3f}, "
+          f"the round after a due one {[round(x, 3) for x in after]} mean "
+          f"{mean(after):.3f} | "
+          f"most retained groups in a snapshot {held} | phase "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return {"launches": results["a"]["launches"], "cases": results,
+            "saves": saves, "resumes": resumes,
+            "snapshot_bytes": state_bytes, "group_bytes": group_bytes}
+
+
 def _sim_describe(cfg) -> str:
     if hasattr(cfg, "img_size"):
         return (f"{cfg.img_size}x{cfg.img_size}x{cfg.in_channels}, "
@@ -3057,6 +3330,10 @@ def main() -> int:
     t1 = time.perf_counter()
     sanitize = phase_sanitize(torch, (fa, ssd_k))
     print(f"[time] sanitizer: {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    ckpt = phase_checkpoint(torch, (fa, ssd_k))
+    print(f"[time] checkpoints: {time.perf_counter() - t1:.0f} s",
+          flush=True)
     served = {arch: run["serve"] for arch, run in {**paths, **wide}.items()
               if run["serve"] is not None}
     kernels = []
@@ -3083,7 +3360,9 @@ def main() -> int:
                             "smollm-135m telemetry":
                                 telemetry["pod"]["launches"][name],
                             "smollm-135m sanitizer":
-                                sanitize["pod"]["launches"][name]},
+                                sanitize["pod"]["launches"][name],
+                            "smollm-135m checkpoints (resumed run)":
+                                ckpt["launches"][name]},
                         "serve_launches": {p: n[name]
                                            for p, n in served.items()}})
         if name.startswith("ssd_"):

@@ -40,12 +40,19 @@ simulator drives in event order, with the per-arrival staleness hooks
 builds that configuration, whose spill budget is the flow controller's
 arithmetic alone.
 
+Checkpointing: :meth:`ControlPlane.state_dict` is the host plan as JSON
+(v3: the spill tier's bookkeeping included), which rides a snapshot's
+metadata next to the ring it describes; :meth:`load_state_dict` restores
+it (a v2 snapshot loads as an empty tier).  The retained groups' params
+ride the snapshot's ``extras.npz`` (``RetentionStore.arrays``).
+
 A copy of the JAX package's control plane, its sanitizer and trace emits
-included, without its plan checkpointing (``state_dict``) and its advisory
-prefetch (``plan_round(lookahead=)``, ``RoundPlan.prefetch``).
+and its plan checkpointing included, without its advisory prefetch
+(``plan_round(lookahead=)``, ``RoundPlan.prefetch``).
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -96,7 +103,9 @@ class RoundPlan:
 class RetentionStore:
     """Host-side per-group dev/aux retention for dropped groups (§3.4.2):
     a group rejoins from its OWN last-synced params at its recorded
-    staleness instead of being resynced by the aggregation broadcast."""
+    staleness instead of being resynced by the aggregation broadcast.
+    Metadata (which groups, at what version) is JSON-able and rides the
+    checkpoint's ``tree.json``; the params ride its ``extras.npz``."""
 
     def __init__(self):
         self._held: dict[int, dict] = {}
@@ -122,6 +131,30 @@ class RetentionStore:
 
     def params_of(self, g: int):
         return self._held[int(g)]["params"]
+
+    # -- checkpoint riding --
+    def meta_dict(self) -> dict:
+        """JSON-able part: which groups are held, at what version."""
+        return {"versions": {str(g): e["version"]
+                             for g, e in self._held.items()}}
+
+    def load_meta(self, meta: dict):
+        """Restore held-group metadata; params arrive via load_arrays."""
+        self._held = {int(g): {"params": None, "version": int(v)}
+                      for g, v in meta.get("versions", {}).items()}
+
+    def arrays(self) -> dict:
+        """The retained params as one tree keyed by group (checkpoint
+        extras payload); empty dict when nothing is held."""
+        return {str(g): e["params"] for g, e in self._held.items()}
+
+    def load_arrays(self, tree: dict):
+        for g, params in tree.items():
+            if int(g) not in self._held:
+                raise KeyError(
+                    f"retention arrays for group {g} have no matching "
+                    "metadata entry — load_meta/load_state_dict first")
+            self._held[int(g)]["params"] = params
 
 
 class ControlPlane:
@@ -510,3 +543,127 @@ class ControlPlane:
             out.update(spills=self.flow.n_spilled, fills=self.flow.n_filled,
                        evictions=0)
         return out
+
+    # ------------------------------------------------------------------
+    # checkpointing: the host plan must survive restarts together with the
+    # ring it describes, or staleness history and slot occupancy silently
+    # reset on resume
+    # ------------------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """JSON-able snapshot of the planning state (pod path).  v3: adds
+        the spill-tier bookkeeping (pool occupancy, eviction policy, tier
+        counters)."""
+        return {
+            "version_tag": 3,
+            "policy": self.scheduler.policy,
+            "versions": [int(v) for v in self.versions],
+            "version": int(self.version),
+            "counters": {str(k): int(v)
+                         for k, v in self.scheduler.counters.items()},
+            "queues": {str(g): [None if m.content is None else int(m.content)
+                                for m in q]
+                       for g, q in self.scheduler.q_act.items()},
+            "arrival": [int(g) for g in self.scheduler._arrival],
+            "slot_groups": [sorted(s) for s in self._slot_groups],
+            "tokens": {str(g): bool(v)
+                       for g, v in self.flow.sender_active.items()},
+            "rr": [int(g) for g in self.flow._rr],
+            "next_write": int(self._next_write),
+            "last_read": int(self._last_read),
+            "n_accepted": int(self.n_accepted),
+            "n_rejected": int(self.n_rejected),
+            "peak_buffered": int(self.peak_buffered),
+            "peak_live_slots": int(self.peak_live_slots),
+            "prev_active": [bool(a) for a in self.prev_active],
+            "retention": self.retention.meta_dict(),
+            "pool_cap": int(self.pool_cap),
+            "eviction": self.mem_policy.name,
+            "pool": {str(k): [int(g) for g in gs]
+                     for k, gs in self._pool.items()},
+            "next_pool_key": int(self._next_pool_key),
+            "slot_touch": [int(t) for t in self._slot_touch],
+            "tick": int(self._tick),
+            "n_spills": int(self.n_spills),
+            "n_fills": int(self.n_fills),
+            "peak_pool": int(self.peak_pool),
+        }
+
+    def load_state_dict(self, sd: dict):
+        """Restore a :meth:`state_dict` snapshot: queue contents (exact
+        order), counters, slot occupancy, staleness versions, and the flow
+        budget implied by the live contributions."""
+        if len(sd["slot_groups"]) != self.omega:
+            raise ValueError(
+                f"snapshot has {len(sd['slot_groups'])} ring slots, "
+                f"this ControlPlane has omega={self.omega}")
+        if sd.get("policy", self.scheduler.policy) != self.scheduler.policy:
+            raise ValueError(
+                f"snapshot was taken under policy={sd['policy']!r}, this "
+                f"ControlPlane uses {self.scheduler.policy!r}; the arrival "
+                "log is policy-specific — resume with the same --policy")
+        pool = {int(k): tuple(int(g) for g in gs)
+                for k, gs in sd.get("pool", {}).items()}
+        if len(pool) > self.pool_cap:
+            raise ValueError(
+                f"snapshot holds {len(pool)} spilled slots but this "
+                f"ControlPlane has pool_cap={self.pool_cap}; resume with "
+                f"--pool-cap >= {len(pool)}")
+        if pool and sd.get("eviction", self.mem_policy.name) != \
+                self.mem_policy.name:
+            raise ValueError(
+                f"snapshot was taken under eviction={sd['eviction']!r}, "
+                f"this ControlPlane uses {self.mem_policy.name!r}; spill "
+                "plans are policy-specific — resume with the same "
+                "--eviction")
+        self.versions[:] = np.asarray(sd["versions"], np.int64)
+        self.version = sd["version"]
+        self.n_accepted = sd["n_accepted"]
+        self.n_rejected = sd["n_rejected"]
+        self.peak_buffered = sd["peak_buffered"]
+        self.peak_live_slots = sd["peak_live_slots"]
+        self._next_write = sd["next_write"]
+        self._last_read = sd["last_read"]
+        self.scheduler.counters = {int(k): v
+                                   for k, v in sd["counters"].items()}
+        self._slot_groups = [set(gs) for gs in sd["slot_groups"]]
+        # replay queues verbatim and restore the flow controller's exact
+        # token/round-robin state (re-granting from fresh registration
+        # order could arm different groups than the original under a tight
+        # budget, diverging a resumed run from an uninterrupted one)
+        self.scheduler.q_act = {
+            int(g): deque(Message("activation", int(g), content=s)
+                          for s in slots)
+            for g, slots in sd["queues"].items()}
+        self.scheduler._arrival = deque(sd["arrival"])
+        if "prev_active" in sd:      # older snapshots predate retention
+            self.prev_active = np.asarray(sd["prev_active"], bool)
+        if "retention" in sd:
+            # metadata only: the params ride the checkpoint's extras.npz —
+            # the driver must call retention.load_arrays with the restored
+            # tree before any held group can rejoin
+            self.retention.load_meta(sd["retention"])
+        # spill-tier bookkeeping (v3; older snapshots have no pool — the
+        # defaults from __init__ already describe an empty tier)
+        self._pool = pool
+        self._next_pool_key = sd.get("next_pool_key", 0)
+        self._slot_touch = [int(t) for t in
+                            sd.get("slot_touch", [0] * self.omega)]
+        self._tick = sd.get("tick", 0)
+        self.n_spills = sd.get("n_spills", 0)
+        self.n_fills = sd.get("n_fills", 0)
+        self.peak_pool = sd.get("peak_pool", len(pool))
+        self.flow.inflight_by.clear()
+        # pooled contributions still hold flow budget: they are buffered
+        # server-side, just in the host tier rather than scheduler queues
+        self.flow.buffered = sum(
+            len(q) for q in self.scheduler.q_act.values()) + \
+            sum(len(gs) for gs in self._pool.values())
+        if "tokens" in sd:
+            self.flow.sender_active = {int(g): v
+                                       for g, v in sd["tokens"].items()}
+            self.flow._rr = [int(g) for g in sd["rr"]]
+        else:   # snapshot predates token serialization: re-grant in the cap
+            for g in list(self.flow.sender_active):
+                self.flow.sender_active[g] = False
+            self.flow._maybe_grant()

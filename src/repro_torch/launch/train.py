@@ -40,6 +40,16 @@ checked online against the seven invariants, a violation aborts the run
 with the offending event window, and a ``sanitizer: N events checked, V
 violations`` line closes the run.  It composes with ``--trace``.
 
+``--ckpt-dir D`` (pod mode, at ``--pool-cap 0``) saves an atomic,
+CRC-checked snapshot every ``--ckpt-every`` rounds (default 5) in the JAX
+package's layout (``repro_torch.checkpoint.store``): the state copied from
+the card, the control plane, the retained groups' params, the batch and
+selection RNGs and the straggler profiles.  Without ``--ckpt-flush`` the
+round is captured at dispatch and saved while later rounds stay in
+flight; with it the pipeline drains first.  Rerunning the same command
+resumes from the newest verified snapshot (a torn one is skipped and
+reported) and continues bit for bit.  Sim mode ignores ``--ckpt-dir``.
+
 ``--arch`` runs at its smoke reduction unless ``--full`` is given.  The
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
 plain versions.
@@ -62,6 +72,8 @@ Examples::
     python -m repro_torch.launch.train --mode pod \\
         --arch jamba-1.5-large-398b --use-kernel --device cpu --batch 4 \\
         --H 2 --seq-len 16 --rounds 2
+    python -m repro_torch.launch.train --mode pod --device cpu --batch 4 \\
+        --H 2 --seq-len 16 --rounds 4 --ckpt-dir ckpt --ckpt-every 2
 
 ``--mode sim`` (``run_sim``) drives a VGG-5 ``FedOptimaLearner`` on the card
 through the event simulator over ``--devices`` heterogeneous devices
@@ -93,6 +105,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.configs import registry
 from repro_torch.core import fedopt_step as F
 from repro_torch.core.control_plane import ControlPlane
@@ -105,6 +118,7 @@ from repro_torch.fleet import (FleetTrace, SelectionContext,
                                make_selection_policy, make_trace,
                                sample_cluster)
 from repro_torch.memory import ActivationStore
+from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.elastic import ElasticRegistry
 
@@ -112,7 +126,6 @@ from repro_torch.runtime.elastic import ElasticRegistry
 #: flag -> (attribute, the value that means "off", the item that brings it).
 #: Unset (None) is off too.
 LATER = {
-    "--ckpt-dir": ("ckpt_dir", None, "A3, checkpoints"),
     "--faults": ("faults", None, "A7, the fault plane"),
 }
 
@@ -228,7 +241,10 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     ``StragglerProfiles`` (uniform by default; ``--fleet-tiers`` seeds
     them from the sampled capabilities), and may pass ``cfg`` to run
     in place of ``pod_config(args)`` (e.g. a full-width arch cut in depth
-    with ``ArchConfig.scaled``)."""
+    with ``ArchConfig.scaled``).  With ``args.ckpt_dir`` the run first
+    resumes from the newest verified snapshot there, if any, and saves
+    every ``args.ckpt_every`` rounds; ``"history"`` then holds the rounds
+    this run ran."""
     _refuse_later_slices(args, LATER)
     window = _pipeline_window(args)
     device = torch.device(args.device)
@@ -239,14 +255,73 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     pool_cap = getattr(args, "pool_cap", None)
     pool_cap = 0 if pool_cap is None else pool_cap
     spill_quant = bool(getattr(args, "spill_quant", False))
+    ckpt_dir = getattr(args, "ckpt_dir", None)
+    if ckpt_dir and pool_cap > 0:
+        raise NotImplementedError(
+            f"--ckpt-dir with --pool-cap {pool_cap}: the spilled slots do "
+            "not ride the port's snapshots yet; they come with ROADMAP "
+            "item A3b (run --pool-cap 0 to checkpoint)")
     cplane = ControlPlane(G, cfg.omega, cfg.H, policy=args.policy,
                           max_delay=args.max_delay, pool_cap=pool_cap,
                           eviction=getattr(args, "eviction", None) or "share")
     # one registry backs the executor and the spill store
     reg = MetricsRegistry()
     act_store = ActivationStore(pool_cap, quant=spill_quant, metrics=reg)
+
+    # the init on the card; on resume only its shapes and dtypes serve, as
+    # the template the snapshot is restored into, straight onto the card
+    state = F.init_train_state(
+        torch.Generator(device=device).manual_seed(args.seed), cfg)
+    start_round = 0
+    resumed_meta = None
+    verified_step = None
+    if ckpt_dir:
+        verified_step, skipped = store.latest_verified_step(ckpt_dir)
+        for bad_step, reason in skipped:
+            print(f"resume: skipping torn snapshot step {bad_step}: "
+                  f"{reason}")
+    if verified_step is not None:
+        start_round = verified_step
+        like = tree_map(lambda x: x.to("meta"), state)
+        del state
+        state = store.restore(ckpt_dir, start_round, like, device=device)
+        if "act_buf" in state:
+            ring = tree_leaves(state["act_buf"])[0].shape[0]
+            if ring != cfg.omega:
+                raise ValueError(
+                    f"checkpoint has an ω={ring} activation ring but "
+                    f"--omega={cfg.omega}; out-of-range slot indices would "
+                    f"be silently clamped — restart with --omega {ring}")
+        meta = store.restore_metadata(ckpt_dir, start_round)
+        if "control_plane" in meta:
+            # restore the host plan with the ring it describes, or slot
+            # occupancy and staleness history silently reset on resume
+            cplane.load_state_dict(meta["control_plane"])
+            slice_like = {k: tree_map(lambda x: x[0], like[k])
+                          for k in ("dev", "aux")}
+            if "spill_store" in meta:
+                # v3 layout: extras.npz is namespaced {"retention", ...};
+                # the spilled slots' namespace comes with A3b (pool 0 here)
+                act_store.load_meta(meta["spill_store"])
+                if len(cplane.retention):
+                    ex = store.restore_extras(ckpt_dir, start_round, {
+                        "retention": {str(g): slice_like
+                                      for g in cplane.retention.groups}})
+                    cplane.retention.load_arrays(ex["retention"])
+            elif len(cplane.retention):
+                # v2 layout: extras.npz holds the retention tree bare
+                cplane.retention.load_arrays(store.restore_extras(
+                    ckpt_dir, start_round,
+                    {str(g): slice_like for g in cplane.retention.groups}))
+        resumed_meta = meta
+        print(f"resumed from round {start_round}")
     streams = _group_streams(cfg, seed=args.seed)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(args.seed + start_round)
+    if resumed_meta and "rng_state" in resumed_meta:
+        # bit-exact continuation: restore the batch RNG mid-stream instead
+        # of reseeding (reseeding resumes a DIFFERENT run than the one
+        # that crashed — same distribution, different batches)
+        rng.bit_generator.state = resumed_meta["rng_state"]
 
     # Fleet emulation (repro_torch.fleet): --fleet-trace maps one trace
     # tick to one round (the pod roster for round r is trace row r,
@@ -278,12 +353,23 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
         profiles = StragglerProfiles(G, step_s=1.0 / caps)
     if profiles is None:
         profiles = StragglerProfiles(G)
+    if resumed_meta and "profiles" in resumed_meta:
+        # restore the measured EMAs so the resumed run plans the same
+        # produce/reads patterns the crashed run would have
+        ps = resumed_meta["profiles"]
+        profiles = StragglerProfiles(
+            G, beta=ps.get("beta", 0.25), step_s=ps.get("step_s"),
+            transfer_s=ps.get("transfer_s"), server_s=ps.get("server_s"))
+        profiles.n_obs = int(ps.get("n_obs", 0))
     executor = RoundExecutor(F.make_train_step(cfg), cplane, window=window,
                              profiles=profiles, gather=F.gather_group_state,
                              scatter=F.scatter_group_state,
                              registry=registry_, store=act_store,
                              gather_slot=F.gather_act_slot,
                              scatter_slot=F.scatter_act_slot, metrics=reg)
+    if sel is not None and resumed_meta and "selection_rng" in resumed_meta \
+            and hasattr(sel, "_rng"):
+        sel._rng.bit_generator.state = resumed_meta["selection_rng"]
     available, cohorts = [], []
 
     def active_fn(r):
@@ -330,13 +416,47 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
         if metrics_every and (r + 1) % metrics_every == 0:
             print(executor.metrics.dump_line(prefix=f"[round {r+1}]"))
 
-    # the init goes straight in: a reference held here would keep the
-    # first round's state alive for the whole run
+    def capture_fn(r):
+        """Dispatch-time host bookkeeping for round r's checkpoint —
+        snapshotted at the SAME boundary as the handle's tensors, so the
+        eventual (possibly deferred) save describes exactly round r.  The
+        extras dict is built fresh here and the retained params it
+        references are never changed in place (a release pops), so a
+        later save sees round-r values."""
+        extras = {}
+        if cplane.retention.arrays():
+            extras["retention"] = cplane.retention.arrays()
+        metadata = {"round": r + 1, "arch": cfg.arch.name,
+                    "control_plane": cplane.state_dict(),
+                    "spill_store": act_store.meta_dict(),
+                    # host-loop continuation state: what a resumed run
+                    # needs for bit-exact replay past this snapshot
+                    "rng_state": rng.bit_generator.state,
+                    "profiles": profiles.summary()}
+        if sel is not None and hasattr(sel, "_rng"):
+            metadata["selection_rng"] = sel._rng.bit_generator.state
+        return {"metadata": metadata, "extras": extras or None}
+
+    def checkpoint_fn(r, handle):
+        """Save round r from its RoundHandle: host copies of the captured
+        tensors + the dispatch-time metadata.  Without flush this runs
+        while rounds r+1..r+window are still in flight; with flush the
+        handle wraps the drained live state — the save is the same."""
+        meta = handle.meta
+        store.save(ckpt_dir, r + 1, handle.host_tree(),
+                   metadata=meta["metadata"], extras=meta["extras"])
+
+    # hand the state over without keeping a reference here: one held
+    # would keep the first round's server params alive for the whole run
+    held = [state]
+    del state
     state, history = executor.run(
-        F.init_train_state(
-            torch.Generator(device=device).manual_seed(args.seed), cfg),
-        0, args.rounds, active_fn=active_fn, batch_fn=batch_fn,
-        on_metrics=on_metrics)
+        held.pop(), start_round, args.rounds, active_fn=active_fn,
+        batch_fn=batch_fn, on_metrics=on_metrics,
+        checkpoint_every=getattr(args, "ckpt_every", 5) if ckpt_dir else 0,
+        checkpoint_fn=checkpoint_fn if ckpt_dir else None,
+        capture_fn=capture_fn if ckpt_dir else None,
+        checkpoint_flush=bool(getattr(args, "ckpt_flush", False)))
     xs = executor.summary()
     print(f"checkpoints: flush_saves={xs['checkpoints']['flush_saves']} "
           f"noflush_saves={xs['checkpoints']['noflush_saves']}  "
@@ -603,8 +723,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "events are checked online against the invariant "
                         "catalogue and any violation aborts the run with "
                         "the offending event window")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint directory (pod mode): atomic, CRC-checked "
+                        "snapshots in the JAX package's layout; a rerun "
+                        "resumes from the newest verified one (pod mode "
+                        "at --pool-cap 0; sim mode ignores it)")
+    p.add_argument("--ckpt-every", type=int, default=5,
+                   help="rounds between snapshots")
+    p.add_argument("--ckpt-flush", action="store_true",
+                   help="drain the round pipeline at each save (the "
+                        "synchronous save point); default: capture the "
+                        "round at dispatch and save it while later rounds "
+                        "stay in flight")
     # later slices of the port: refused with NotImplementedError when set
-    p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--faults", default=None)
     return p
 

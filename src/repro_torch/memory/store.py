@@ -22,8 +22,11 @@ dequantises there.  The host never reads a payload's values: the byte
 accounting uses shapes and dtypes only.  Off the card the same code makes
 plain host copies.
 
-The torch form of the JAX package's ``memory/store.py``.  Its advisory
-prefetch and its checkpoint riding are not ported.
+The torch form of the JAX package's ``memory/store.py``.  Of its
+checkpoint riding, the metadata (:meth:`ActivationStore.meta_dict`,
+:meth:`ActivationStore.load_meta`) is ported; the spilled payloads
+(``arrays``, ``load_arrays``, ``like_tree``, ``slot_dtypes``) and its
+advisory prefetch are not.
 """
 from __future__ import annotations
 
@@ -206,6 +209,31 @@ class ActivationStore:
             _tr.emit_instant("host/memory", "fill", _now(), key=int(key),
                              entries=len(self._pool))
         return _decode(e["payload"], e["dtypes"], e["devices"])
+
+    # ------------------------------------------------------------------
+    # checkpoint riding (RetentionStore protocol)
+    # ------------------------------------------------------------------
+
+    def meta_dict(self) -> dict:
+        """JSON-able part: held keys + per-entry quantization flag."""
+        return {"pool_cap": self.pool_cap, "quant_default": self.quant,
+                "entries": {str(k): {"quant": bool(e["quant"])}
+                            for k, e in self._pool.items()}}
+
+    def load_meta(self, meta: dict) -> None:
+        """Restore held-key metadata; the payloads do not ride the port's
+        snapshots yet, so a held key has none."""
+        entries = meta.get("entries", {})
+        if len(entries) > self.pool_cap:
+            raise ValueError(
+                f"snapshot holds {len(entries)} spilled slots but this "
+                f"store has pool_cap={self.pool_cap}; resume with "
+                f"--pool-cap >= {len(entries)}")
+        self._pool = {int(k): {"payload": None, "quant": bool(e["quant"]),
+                               "dtypes": None, "devices": None}
+                      for k, e in entries.items()}
+        self._g_pool_bytes.set(0)
+        self._g_entries.set(len(self._pool))
 
     # ------------------------------------------------------------------
 

@@ -285,7 +285,7 @@ def test_summary_reports_steady_state_exposure_excluding_warmup():
 
 
 # ---------------------------------------------------------------------------
-# checkpoint hooks (the saver is the caller's; checkpoints proper are A3)
+# checkpoint hooks (the saver is the caller's; run_pod's: test_torch_resume.py)
 # ---------------------------------------------------------------------------
 
 def _run_with_saver(flush, saves, window=2, rounds=8):

@@ -364,7 +364,8 @@ def test_driver_runs_rounds_with_retention(capsys):
 REFUSED = [  # flags, the error, what its message must name
     (["--window", "0"], ValueError, "window must be >= 1"),
     (["--pool-cap", "-1"], ValueError, "pool_cap must be >= 0"),
-    (["--ckpt-dir", "ckpt"], NotImplementedError, "A3, checkpoints"),
+    # checkpoints run since A3a at pool 0; the spilled slots are A3b's
+    (["--ckpt-dir", "ckpt", "--pool-cap", "2"], NotImplementedError, "A3b"),
     # sim mode runs since A6a; its planes stay refused there too
     (["--mode", "sim", "--faults", "random"], NotImplementedError,
      "A7, the fault plane"),

@@ -447,16 +447,28 @@ def test_simulator_refuses_later_planes(name, value, item):
                                 **{name: value})
 
 
-SIM_REFUSED = [(["--faults", "random"], "A7, the fault plane"),
-               (["--ckpt-dir", "ckpt"], "A3, checkpoints")]
+SIM_ARGS = ["--mode", "sim", "--device", "cpu", "--devices", "2",
+            "--duration", "1"]
+SIM_REFUSED = [(["--faults", "random"], "A7, the fault plane")]
 
 
 @pytest.mark.parametrize("flags,item", SIM_REFUSED,
                          ids=[f[0] for f, _ in SIM_REFUSED])
 def test_sim_mode_refuses_later_flags(flags, item):
     with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(["--mode", "sim", "--device", "cpu", "--devices", "2",
-                     "--duration", "1"] + flags)
+        ttrain.main(SIM_ARGS + flags)
+
+
+def test_sim_mode_ignores_ckpt_dir(tmp_path):
+    """As in the JAX driver, sim mode takes ``--ckpt-dir`` and writes
+    nothing there: the run is the one without it."""
+    d = tmp_path / "ckpt"
+    plain = ttrain.main(SIM_ARGS)
+    with_dir = ttrain.main(SIM_ARGS + ["--ckpt-dir", str(d)])
+    assert not d.exists()
+    for k in ("accuracy", "srv_idle", "dev_idle", "throughput", "memory",
+              "consumed"):
+        assert with_dir[k] == plain[k], k
 
 
 def test_pool_cap_refused_on_the_pod_path_only():
