@@ -48,7 +48,7 @@ exits non-zero:
    the dropped assignments and times printed.
 4. main paths — the pod round of full-width smollm-135m (G=4, batch 8,
    H=4, seq 1024, l_split 3, ω=1), then of full-width mamba2-780m cut to
-   16 of its 48 layers (``MAIN_CUTS``; l_split 2, its 1:7 split): two rounds with the kernels and two with the plain
+   8 of its 48 layers (``MAIN_CUTS``; l_split 1, its 1:7 split): two rounds with the kernels and two with the plain
    path (``sdpa_chunked``, ``ssd_chunked``) from the same state, batches
    and plans: the kernels launch as reckoned from H, G and the split and
    the plain path never, losses within 1e-3 relative, params within
@@ -209,8 +209,8 @@ exits non-zero:
    0, a snapshot every ``CKPT_EVERY`` rounds into ``CKPT_DIR`` (its free
    space checked and printed first; removed afterwards): ``CKPT_ROUNDS``
    rounds unbroken at window 2, then for each of ``CKPT_CASES`` ((a)
-   window 2 without flush, (b) window 1 with ``--ckpt-flush``) half the
-   rounds and a rerun of the command that resumes from the newest
+   window 2 without flush, (b) window 1 with ``--ckpt-flush``)
+   ``CKPT_EVERY`` rounds and a rerun of the command that resumes from the newest
    verified snapshot: the histories and every leaf of the final state
    bit-identical to the unbroken run's, a snapshot holding a retained
    group, the kernels launched as reckoned (156 a round per attention
@@ -219,7 +219,21 @@ exits non-zero:
    seconds of each save (host copy, leaves to numpy, CRC32, write and
    fsync), of each resume (verify, restore onto the card),
    ``handle_bytes_peak``, and the rounds' wall times with a save due and
-   without.
+   without.  (c) the spilled slots on a snapshot: ``CKPT_POOL_ROUNDS``
+   rounds at ω=2 + ``--pool-cap 2`` under phase 9's stall (f32, window 2),
+   unbroken and without checkpoints, against the same run with a snapshot
+   every ``CKPT_POOL_EVERY`` rounds, killed in-process right after its
+   snapshot (which holds the two spilled slots; their bytes printed) and
+   resumed to the end: the restored slots fill back, and the histories
+   and every leaf of the final state are bit-identical.  (d) crash
+   recovery: a dense fault schedule (``ckpt_fault_schedule``, written as
+   ``fault-schedule-v1`` JSON) on the same pool and stall with a snapshot
+   every round and ``--ckpt-flush``: a timed-out group, a quarantined
+   ``inf`` upload, a ``bitflip``-torn snapshot and a server crash at the
+   next save boundary.  The crash must fire; the rerun of the command
+   skips the torn snapshot, resumes from the newest verified one, and
+   ends with ``matched: true``, one injection of each class and finite
+   losses.  The phase prints its seconds.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -276,13 +290,13 @@ MAIN_ARGS = ["--mode", "pod", "--full", "--groups-per-shard", "4",
              "--use-kernel", "--device", "cuda"]
 MAIN_PATHS = {  # arch: its own flags
     "smollm-135m": ["--arch", "smollm-135m", "--l-split", "3"],
-    "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "2"],
+    "mamba2-780m": ["--arch", "mamba2-780m", "--l-split", "1"],
 }
 # Depth cuts of the main paths, as ``ArchConfig.scaled`` keywords: mamba2
-# runs 16 of its 48 layers (2 on the device, 14 on the server, the 1:7
-# split of 6 and 42), at every published width, to keep the script inside
-# its time; smollm runs whole
-MAIN_CUTS = {"mamba2-780m": dict(n_layers=16)}
+# runs 8 of its 48 layers (1 on the device, 7 on the server, the 1:7 split
+# of 6 and 42), at every published width, to keep the script inside its
+# time; smollm runs whole
+MAIN_CUTS = {"mamba2-780m": dict(n_layers=8)}
 DRIVER_ROUNDS = {"smollm-135m": 2, "mamba2-780m": 2}   # per driver run
 # The windows of the driver runs: one turn of each.  The windows'
 # histories are compared, and phase 5 runs both windows again under churn;
@@ -1272,7 +1286,9 @@ def drive(torch, args, cfg, counters, keep_final: bool = False,
         (f" --fleet-trace {args.fleet_trace}" if args.fleet_trace else "")
     print(f"{tag}: history "
           f"{[(m['d_loss'], m['s_loss']) for m in out['history']]}")
-    print(f"{tag}: steady {out['steady_tok_s']:,.1f} tok/s (rounds 2-"
+    steady = "n/a (one round)" if out["steady_tok_s"] is None else \
+        f"{out['steady_tok_s']:,.1f}"
+    print(f"{tag}: steady {steady} tok/s (rounds 2-"
           f"{rounds}, first to last completion) | per round after the first"
           f" {[round(t, 1) for t in per_round]} | whole run "
           f"{tokens * rounds / wall:,.1f} tok/s ({wall:.3f} s) | peak memory"
@@ -1345,6 +1361,15 @@ def stalled_profiles(n_groups: int, stall: int):
 
         def reads(self, H):
             return np.full(H, self.planned > stall, bool)
+
+        # the count of plans rides a snapshot, so a resumed run keeps the
+        # stall's phase
+        def summary(self):
+            return {**super().summary(), "planned": self.planned}
+
+        def load_summary(self, ps):
+            super().load_summary(ps)
+            self.planned = ps["planned"]
     return Stalled(n_groups)
 
 
@@ -1769,9 +1794,9 @@ SIM_MODELS = {  # name: (module, config, l_split, lr)
 }
 SIM_SAMPLES = 1024
 SIM_MODEL_DURATION = 10.0
-# (a): run_sim's defaults but 100 simulated seconds, to keep the script
+# (a): run_sim's defaults but 50 simulated seconds, to keep the script
 # inside its time
-SIM_RUN_DURATION = 100.0
+SIM_RUN_DURATION = 50.0
 # the baselines that train the whole model on the device (FullModelLearner);
 # SplitFed, PiPar and OAFL train a split one (SplitLearner)
 FULL_MODEL = ("fl", "fedasync", "fedbuff")
@@ -3014,14 +3039,38 @@ def phase_sanitize(torch, counters) -> dict:
 # Phase 13, checkpoints: smollm's main path (phase 4's config, the
 # kernels) under churn at pool 0, a snapshot every CKPT_EVERY rounds into
 # CKPT_DIR (gitignored, inside the checkout); CKPT_ROUNDS rounds unbroken
-# against CKPT_ROUNDS / 2 and a rerun of the command to CKPT_ROUNDS, for
-# each of CKPT_CASES.  Windows and flush do not change values (phases 4b,
-# 5), so case (b)'s resumed run is held against (a)'s unbroken one.
+# against CKPT_EVERY rounds and a rerun of the command to CKPT_ROUNDS, for
+# each of CKPT_CASES (cut from 4 rounds to 3 to make room for (c) and (d);
+# the snapshot at round 2 holds two retained groups).  Windows and flush
+# do not change values (phases 4b, 5), so case (b)'s resumed run is held
+# against (a)'s unbroken one.
 CKPT_FLAGS = ["--p-drop", "0.3"]
 CKPT_EVERY = 2
-CKPT_ROUNDS = 4
+CKPT_ROUNDS = 3
 CKPT_CASES = {"a": ["--window", "2"], "b": ["--window", "1", "--ckpt-flush"]}
 CKPT_DIR = ROOT / "build" / "ckpt"
+# (c): phase 9's pool and stall; the snapshot at round 3 holds both
+# spilled slots, and the resumed run's last round fills them back.
+CKPT_POOL_ROUNDS = 4
+CKPT_POOL_EVERY = 3
+# (d): the same pool and stall, a snapshot every round with --ckpt-flush
+# (a save finishes before the next boundary, so the crash at round 2's
+# boundary follows the torn snapshot of round 2), 3 rounds.
+CKPT_FAULT_ROUNDS = 3
+CKPT_FAULT_FLAGS = ["--window", "2", "--ckpt-every", "1", "--ckpt-flush"]
+
+
+def ckpt_fault_schedule():
+    """Phase 13 (d)'s dense pod schedule: at round 1 group 1 times out for
+    a round, group 2's uploads carry ``inf`` and the snapshot of round 1
+    (step 2) is torn by a bit flip; the server crashes at round 2's
+    boundary, with step 1 the newest verified snapshot."""
+    from repro_torch.faults import FaultEvent, FaultSchedule
+    return FaultSchedule(horizon=float(CKPT_FAULT_ROUNDS), events=(
+        FaultEvent(1.0, "timeout", device=1, param=1.0),
+        FaultEvent(1.0, "corrupt_act", device=2, kind="inf"),
+        FaultEvent(1.0, "torn_checkpoint", kind="bitflip"),
+        FaultEvent(2.0, "server_crash", param=1.0)))
 
 
 class CkptTimers:
@@ -3127,6 +3176,179 @@ def _snapshot_bytes(torch, state) -> int:
                for x in tree_leaves(state))
 
 
+class _Killed(Exception):
+    """Phase 13 (c)'s in-process kill, raised right after a save."""
+
+
+def _pool_args(extra):
+    """(args, cfg) of (c) and (d): smollm's main path with phase 9's pool
+    (``STORE_FLAGS``) under its stalled profile (``STORE_STALL``)."""
+    args, cfg = main_setup("smollm-135m", STORE_FLAGS + list(extra))
+    args.profiles = stalled_profiles(cfg.n_groups, STORE_STALL)
+    return args, cfg
+
+
+def _attempt(torch, args, cfg, counters, expect=None):
+    """``train.run_pod(args, cfg)`` with every launch count set to 0 just
+    before it and read just after; with ``expect`` the run must raise that
+    exception, which comes back in the result as ``"raised"``."""
+    from repro_torch.launch import train
+    for c in counters:
+        c.reset_launches()
+    out = {}
+    try:
+        out = train.run_pod(args, cfg)
+    except Exception as err:        # noqa: BLE001 (re-raised unless expected)
+        if expect is None or not isinstance(err, expect):
+            raise
+        out = {"raised": err}
+    else:
+        if expect is not None:
+            raise AssertionError(f"the run did not raise {expect.__name__}")
+    torch.cuda.synchronize()
+    out["launches"] = {k: v for c in counters for k, v in c.launches.items()}
+    return out
+
+
+def _check_run(tag, out, want, rounds):
+    if out["launches"] != {k: n * rounds for k, n in want.items()}:
+        raise AssertionError(f"{tag}: launches {out['launches']}, want "
+                             f"{rounds} x {want}")
+    for m in out.get("history", ()):
+        if not all(math.isfinite(m[k]) for k in ("d_loss", "s_loss")):
+            raise AssertionError(f"{tag}: non-finite loss {m}")
+
+
+def ckpt_pool_leg(torch, counters, want, saves, resumes) -> dict:
+    """Phase 13 (c): the spilled slots on a snapshot (see the module
+    docstring)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.models.common import tree_leaves
+    d = CKPT_DIR / "c"
+    flags = ["--window", "2", "--rounds", str(CKPT_POOL_ROUNDS)]
+    unbroken = _attempt(torch, *_pool_args(flags), counters)
+    _check_run("ckpt (c) unbroken", unbroken, want, CKPT_POOL_ROUNDS)
+    if unbroken["memory"]["fills"] != 2:
+        raise AssertionError(f"ckpt (c): the pool did not spill and fill "
+                             f"two slots: {unbroken['memory']}")
+    flags += ["--ckpt-dir", str(d), "--ckpt-every", str(CKPT_POOL_EVERY)]
+    seen = []
+    args, cfg = _pool_args(flags)
+    args.on_round = lambda r, m: seen.append(m)
+    with CkptTimers() as tm:
+        timed_save = store.save
+
+        def save_then_die(*a, **kw):
+            raise _Killed(timed_save(*a, **kw))
+        store.save = save_then_die
+        try:
+            killed = _attempt(torch, args, cfg, counters, expect=_Killed)
+        finally:
+            store.save = timed_save
+    saves += tm.saves
+    snap = Path(str(killed["raised"]))
+    with open(snap / "tree.json") as f:
+        man = json.load(f)
+    held = man["metadata"]["spill_store"]["entries"]
+    with np.load(snap / "extras.npz") as ex:
+        spill_bytes = sum(ex[k].nbytes for k in ex.files
+                          if k.startswith("spill/"))
+    if man["step"] != CKPT_POOL_EVERY or len(held) != 2:
+        raise AssertionError(f"ckpt (c): the snapshot at step "
+                             f"{man['step']} holds {held}, not two spilled "
+                             f"slots at step {CKPT_POOL_EVERY}")
+    with CkptTimers() as tm:
+        rest = _attempt(torch, *_pool_args(flags), counters)
+    saves += tm.saves
+    resumes += tm.resumes
+    ran = len(rest["history"])
+    _check_run("ckpt (c) resumed", rest, want, ran)
+    same_hist = seen == unbroken["history"][:len(seen)] and \
+        rest["history"] == unbroken["history"][CKPT_POOL_EVERY:]
+    la, lb = tree_leaves(rest["state"]), tree_leaves(unbroken["state"])
+    same_state = len(la) == len(lb) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(la, lb))
+    refilled = rest["memory"]["store_fills"]
+    print(f"[ckpt] (c) {' '.join(STORE_FLAGS + flags[:2])}, stall "
+          f"{STORE_STALL}, {CKPT_POOL_ROUNDS} rounds: killed in-process "
+          f"after the snapshot at step {man['step']} ({len(seen)} rounds "
+          f"drained), which holds spilled slots {sorted(held)}: "
+          f"{spill_bytes} bytes of spill arrays as written "
+          f"({spill_bytes / 1e6:.3f} MB; int64 labels at int32); the rerun "
+          f"resumed and ran {ran} round(s), filling {refilled} restored "
+          f"slot(s): histories bit-identical to the unbroken run without "
+          f"checkpoints {same_hist}, every leaf of the final state "
+          f"bit-identical {same_state} | launches of the resumed run "
+          f"{rest['launches']}", flush=True)
+    rest["state"] = unbroken["state"] = None
+    if not (same_hist and same_state):
+        raise AssertionError("checkpoints (c): the resumed pool run differs "
+                             "from the unbroken one")
+    if ran != CKPT_POOL_ROUNDS - CKPT_POOL_EVERY or refilled != 2:
+        raise AssertionError(f"checkpoints (c): the rerun ran {ran} rounds "
+                             f"and filled {refilled} restored slots")
+    return {"history": same_hist, "state": same_state,
+            "spill_bytes": spill_bytes, "launches": rest["launches"]}
+
+
+def ckpt_fault_leg(torch, counters, want, saves, resumes) -> dict:
+    """Phase 13 (d): crash recovery under a dense fault schedule (see the
+    module docstring)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.faults import InjectedCrash
+    d = CKPT_DIR / "d"
+    d.mkdir()
+    sched = ckpt_fault_schedule()
+    path = CKPT_DIR / "faults.json"
+    sched.save(str(path))
+    flags = CKPT_FAULT_FLAGS + ["--rounds", str(CKPT_FAULT_ROUNDS),
+                                "--ckpt-dir", str(d), "--faults", str(path)]
+    crash_at = int(sched.by_class("server_crash")[0].t)
+    torn_step = int(sched.by_class("torn_checkpoint")[0].t) + 1
+    with CkptTimers() as tm:
+        crashed = _attempt(torch, *_pool_args(flags), counters,
+                           expect=InjectedCrash)
+    saves += tm.saves
+    _check_run("ckpt (d) crashed", crashed, want, crash_at)
+    with open(d / "FAULTS_FIRED.json") as f:
+        fired = json.load(f)
+    newest, skipped = store.latest_verified_step(str(d))
+    if crashed["raised"].round_index != crash_at or fired != [crash_at] or \
+            newest != crash_at - 1 or [s for s, _ in skipped] != [torn_step]:
+        raise AssertionError(
+            f"ckpt (d): crash {crashed['raised']}, fired {fired}, newest "
+            f"verified {newest}, skipped {skipped}")
+    with CkptTimers() as tm:
+        rest = _attempt(torch, *_pool_args(flags), counters)
+    saves += tm.saves
+    resumes += tm.resumes
+    ran = len(rest["history"])
+    _check_run("ckpt (d) resumed", rest, want, ran)
+    fr = rest["faults"]
+    once = {cls: 1 for cls in ("corrupt_act", "timeout", "server_crash",
+                               "torn_checkpoint")}
+    print(f"[ckpt] (d) {' '.join(STORE_FLAGS + CKPT_FAULT_FLAGS)}, stall "
+          f"{STORE_STALL}, {CKPT_FAULT_ROUNDS} rounds, faults "
+          f"{sched.to_json()['events']}: crashed at boundary "
+          f"{crashed['raised'].round_index} (fired {fired}); the rerun "
+          f"skipped {[(s, r[:60]) for s, r in skipped]}, resumed from round "
+          f"{newest} and ran {ran} round(s): injected {fr['injected']}, "
+          f"recovered {fr['recovered']}, disposition {fr['disposition']}, "
+          f"matched {fr['matched']}, gate {fr['gate']} | memory "
+          f"{rest['memory']} | losses "
+          f"{[(m['d_loss'], m['s_loss']) for m in rest['history']]} | "
+          f"launches of the resumed run {rest['launches']}", flush=True)
+    rest["state"] = None
+    if not (fr["matched"] and fr["injected"] == once
+            and fr["recovered"] == once
+            and ran == CKPT_FAULT_ROUNDS - newest):
+        raise AssertionError(f"checkpoints (d): not every class injected "
+                             f"once and recovered: {fr}, {ran} rounds")
+    return {"faults": fr, "launches": rest["launches"]}
+
+
 def phase_checkpoint(torch, counters) -> dict:
     """Phase 13 (see the module docstring): save, tear down, resume, on
     the card, against the unbroken run."""
@@ -3146,14 +3368,16 @@ def phase_checkpoint(torch, counters) -> dict:
                       for x in tree_leaves(probe[k]))
     state_bytes = _snapshot_bytes(torch, probe)
     del probe
-    # the store keeps steps 2 and 4 of a run; at most G - 1 groups are
-    # retained (a roster keeps one group at least)
+    # a run of (a) or (b) keeps one snapshot, (d) three (the store's
+    # retain); at most G - 1 groups are retained (a roster keeps one group
+    # at least), and (c) and (d) hold a second ring slot and two spilled
+    # ones (2 x 18.94 MB; 0.1 GB is room for them)
     free = shutil.disk_usage(CKPT_DIR).free
-    need = 2 * (state_bytes + (cfg.n_groups - 1) * group_bytes)
+    need = 3 * (state_bytes + (cfg.n_groups - 1) * group_bytes + 1e8)
     print(f"[ckpt] {CKPT_DIR}: {free / 1e9:.2f} GB free; a snapshot "
           f"{state_bytes / 1e9:.4f} GB reckoned from the state's leaves + "
-          f"{group_bytes / 1e9:.4f} GB a retained group; two at once need "
-          f"up to {need / 1e9:.2f} GB", flush=True)
+          f"{group_bytes / 1e9:.4f} GB a retained group; a run's snapshots "
+          f"need up to {need / 1e9:.2f} GB", flush=True)
     if free < need:
         raise RuntimeError(f"checkpoints: {free / 1e9:.2f} GB free under "
                            f"{CKPT_DIR}, {need / 1e9:.2f} GB needed")
@@ -3195,7 +3419,7 @@ def phase_checkpoint(torch, counters) -> dict:
     shutil.rmtree(unbroken_dir)
     for case in CKPT_CASES:
         d = CKPT_DIR / case
-        first, tm1 = run(case, d, CKPT_ROUNDS // 2)
+        first, tm1 = run(case, d, CKPT_EVERY)
         rest, tm2 = run(case, d, CKPT_ROUNDS, keep_state=True)
         saves += tm1.saves + tm2.saves
         resumes += tm2.resumes
@@ -3213,7 +3437,7 @@ def phase_checkpoint(torch, counters) -> dict:
                              rest["executor"]["handle_bytes_peak"]),
                          "launches": rest["launches"]}
         print(f"[ckpt] ({case}) {' '.join(CKPT_CASES[case])}: "
-              f"{CKPT_ROUNDS // 2} rounds, then the rerun resumed to "
+              f"{CKPT_EVERY} rounds, then the rerun resumed to "
               f"{CKPT_ROUNDS}: histories bit-identical to the unbroken run "
               f"{same_hist}, every leaf of the final state bit-identical "
               f"{same_state} | snapshots {facts} | handle_bytes_peak "
@@ -3231,6 +3455,12 @@ def phase_checkpoint(torch, counters) -> dict:
                for f in r["snapshots"]):
         raise AssertionError("checkpoints: no snapshot held a retained "
                              "group")
+    t1 = time.perf_counter()
+    results["c"] = ckpt_pool_leg(torch, counters, want, saves, resumes)
+    print(f"[ckpt] (c) {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    results["d"] = ckpt_fault_leg(torch, counters, want, saves, resumes)
+    print(f"[ckpt] (d) {time.perf_counter() - t1:.0f} s", flush=True)
     mean = lambda xs: statistics.mean(xs) if xs else float("nan")
     parts = ("host_copy", "to_numpy", "crc", "write_fsync", "save")
     per_part = {p: [s[p] for s in saves if p in s] for p in parts}

@@ -27,7 +27,7 @@ the busy intervals carry the reference's span names and lanes (PiPar's
 overlapped forward on the ``dev/<k>/pipe`` sub-lane) and the churn seams
 emit ``leave``/``join`` instants, so the sim-domain traces are equal too.
 The ``faults=`` and ``fault_gate=`` planes are refused with the ROADMAP
-item that brings them (A7.3), as ``simulate_fedoptima`` refuses them.
+item that brings them (A7.3a), as ``simulate_fedoptima`` refuses them.
 With a protocol sanitizer attached the async and split loops emit the
 reference's ``sim.*`` chain and roster events (chain events in the split
 loop only without the sync barrier).  ``seed`` is unused, as in the
@@ -44,7 +44,7 @@ from repro_torch.obs import trace as _tr
 from . import simulation
 from .simulation import Metrics, Sim, SimCluster, SimModel, refuse_later
 
-#: baseline arguments whose planes come with ROADMAP item A7:
+#: baseline arguments whose planes come with ROADMAP item A7.3a:
 #: argument -> (the value that means "off", the item that brings it).
 LATER = {name: simulation.LATER[name] for name in ("faults", "fault_gate")}
 

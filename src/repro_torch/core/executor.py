@@ -59,9 +59,17 @@ each dispatch emits ``exec.round`` after the round's ``finish_round``,
 which checks the planner's ring and pool against the store's held keys;
 the event carries host objects only, so it reads no tensor.
 
-The torch form of the JAX package's ``core/executor.py``.  Still to come:
-the fault plane (``faults``); the store's advisory prefetch and the light
-per-round handles are not ported.
+With a fault injector (``faults=``, a
+``repro_torch.faults.PodFaultInjector``) each round first passes its
+boundary hooks before planning: ``on_round_start`` may raise
+``InjectedCrash`` before any of round r's bookkeeping, so a resumed run
+replans round r from the same state; ``mask_active`` takes timed-out
+groups off the roster; ``mask_produce`` zeroes the produce column of a
+quarantined group.  ``finalize`` closes the open timeouts at the end of
+the run, and ``summary()["faults"]`` holds the injector's report.
+
+The torch form of the JAX package's ``core/executor.py``; the store's
+advisory prefetch and the light per-round handles are not ported.
 """
 from __future__ import annotations
 
@@ -214,6 +222,17 @@ class StragglerProfiles:
         rho = np.asarray(min(1.0, cadence / max(self.server_s, 1e-12)))
         return self._stride(rho, H)
 
+    def load_summary(self, ps: dict) -> None:
+        """Take back the measured state a :meth:`summary` holds (a resumed
+        run's profile, as the snapshot's metadata keeps it)."""
+        self.beta = ps.get("beta", 0.25)
+        self.step_s = None if ps.get("step_s") is None else \
+            np.asarray(ps["step_s"], float).copy()
+        self.transfer_s = None if ps.get("transfer_s") is None else \
+            np.asarray(ps["transfer_s"], float).copy()
+        self.server_s = ps.get("server_s")
+        self.n_obs = int(ps.get("n_obs", 0))
+
     def summary(self) -> dict:
         """JSON-able snapshot for logs / benchmark records."""
         out = {"n_obs": int(self.n_obs), "beta": self.beta}
@@ -337,14 +356,18 @@ class RoundExecutor:
         run before spills, so the pool never transiently exceeds its cap;
         a slot filled and spilled at the same boundary spills the fill
         payload itself.
+    faults : repro_torch.faults.PodFaultInjector | None
+        Fault injection at round boundaries (crash, timeout, quarantined
+        upload); None (the default) is a strict no-op.
     metrics : MetricsRegistry | None
         The registry behind the executor's instruments (shared with the
-        store by the driver); a fresh one by default.
+        store and the fault gate by the driver); a fresh one by default.
     """
 
     def __init__(self, step, cplane, *, window: int = 1, profiles=None,
                  gather=None, scatter=None, registry=None, store=None,
-                 gather_slot=None, scatter_slot=None, metrics=None):
+                 gather_slot=None, scatter_slot=None, faults=None,
+                 metrics=None):
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         self.step = step
@@ -357,6 +380,7 @@ class RoundExecutor:
         self.store = store
         self.gather_slot = gather_slot
         self.scatter_slot = scatter_slot
+        self.faults = faults
         self.stats: list[RoundStats] = []
         # -- instruments (pure bookkeeping; legacy names are properties) --
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -441,6 +465,14 @@ class RoundExecutor:
                 else None
             reads = self.profiles.reads(H) if self.profiles is not None \
                 else None
+            if self.faults is not None:
+                # crash faults raise BEFORE any round-r bookkeeping, so a
+                # resumed run replans round r from identical state
+                self.faults.on_round_start(r)
+                active = self.faults.mask_active(r, active)
+                if produce is None:
+                    produce = np.ones((H, self.cplane.G), bool)
+                produce = self.faults.mask_produce(r, produce, active)
             plan = self.cplane.plan_round(active=active, produce=produce,
                                           reads=reads)
             state = self._apply_retention(state, plan, r)
@@ -494,6 +526,8 @@ class RoundExecutor:
         while self._pending:
             self._drain_one(history, on_metrics)
         self._service_deferred(checkpoint_fn, force=True)
+        if self.faults is not None:
+            self.faults.finalize(end_round)
         return state, history
 
     # ------------------------------------------------------------------
@@ -750,4 +784,6 @@ class RoundExecutor:
         if self.store is not None:
             out["memory"] = {**self.cplane.memory_summary(),
                              **self.store.summary()}
+        if self.faults is not None:
+            out["faults"] = self.faults.report()
         return out

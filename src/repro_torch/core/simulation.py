@@ -23,7 +23,8 @@ too.  With a protocol sanitizer attached
 (``repro_torch.analysis.sanitize``) the device chains and the roster
 changes emit the reference's ``sim.*`` events, field for field, so the
 event streams are equal as well.  Fault injection is refused with the
-ROADMAP item that brings it (A7.3).  The baselines
+ROADMAP item that brings it (A7.3a, the fault plane in the simulators;
+the pod round's half is in ``repro_torch.faults``).  The baselines
 (``core/baselines.py``) run on the same engine and ``Metrics``.
 """
 from __future__ import annotations
@@ -44,11 +45,11 @@ from .control_plane import ControlPlane
 from .executor import StragglerProfiles
 from .scheduler import Message
 
-#: simulate_fedoptima arguments whose planes come with ROADMAP item A7:
+#: simulate_fedoptima arguments whose planes come with ROADMAP item A7.3a:
 #: argument -> (the value that means "off", the item that brings it).
 LATER = {
-    "faults": (None, "A7, the fault plane"),
-    "fault_gate": (None, "A7, the fault plane"),
+    "faults": (None, "A7.3a, the fault plane in the simulators"),
+    "fault_gate": (None, "A7.3a, the fault plane in the simulators"),
 }
 
 # test-only mutation hook: True re-introduces the churn-flap bug — the
@@ -127,7 +128,7 @@ class Sim:
 @dataclass
 class Metrics:
     """The run's accounting.  The reference's ``faults`` field, which only
-    its fault plane fills, comes with item A7.  ``rounds`` counts the
+    its fault plane fills, comes with item A7.3a.  ``rounds`` counts the
     synchronous baselines' rounds; ``simulate_fedoptima`` never sets
     it."""
     K: int
@@ -318,7 +319,7 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         static identity trace for its ticks.
     registry (optional): an ``ElasticRegistry`` mirroring the roster; a
         fleet run makes one.  Returned on ``Metrics.registry``.
-    faults, fault_gate: the fault plane of ROADMAP item A7.3; anything
+    faults, fault_gate: the fault plane of ROADMAP item A7.3a; anything
         but their default raises ``NotImplementedError``.
     metrics_every: simulated-seconds cadence for a one-line metrics dump
         (stdout); 0 disables.  Pure print — scheduling it perturbs no

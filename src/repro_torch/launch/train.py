@@ -40,15 +40,27 @@ checked online against the seven invariants, a violation aborts the run
 with the offending event window, and a ``sanitizer: N events checked, V
 violations`` line closes the run.  It composes with ``--trace``.
 
-``--ckpt-dir D`` (pod mode, at ``--pool-cap 0``) saves an atomic,
-CRC-checked snapshot every ``--ckpt-every`` rounds (default 5) in the JAX
-package's layout (``repro_torch.checkpoint.store``): the state copied from
-the card, the control plane, the retained groups' params, the batch and
-selection RNGs and the straggler profiles.  Without ``--ckpt-flush`` the
-round is captured at dispatch and saved while later rounds stay in
-flight; with it the pipeline drains first.  Rerunning the same command
-resumes from the newest verified snapshot (a torn one is skipped and
-reported) and continues bit for bit.  Sim mode ignores ``--ckpt-dir``.
+``--ckpt-dir D`` (pod mode) saves an atomic, CRC-checked snapshot every
+``--ckpt-every`` rounds (default 5) in the JAX package's layout
+(``repro_torch.checkpoint.store``): the state copied from the card, the
+control plane, the retained groups' params, the spilled ring slots of the
+host pool (``--pool-cap``), the batch and selection RNGs and the
+straggler profiles.  Without ``--ckpt-flush`` the round is captured at
+dispatch and saved while later rounds stay in flight; with it the
+pipeline drains first.  Rerunning the same command resumes from the
+newest verified snapshot (a torn one is skipped and reported) and
+continues bit for bit.  Sim mode ignores ``--ckpt-dir``.
+
+``--faults`` (pod mode; ``repro_torch.faults``) plays a fault schedule, a
+``fault-schedule-v1`` JSON or ``random[:density]`` over the pod classes,
+into the round boundaries: ``corrupt_act`` (the update gate quarantines
+the group's uploads for the round), ``timeout`` (the group leaves the
+roster and rejoins from its retained params), ``server_crash`` (the run
+raises ``InjectedCrash`` at the boundary after writing the fired
+boundaries to ``FAULTS_FIRED.json``; rerun the command to resume) and
+``torn_checkpoint`` (the snapshot just written is damaged; a resume skips
+it).  Crashes and tears need ``--ckpt-dir``.  A ``faults:`` line reports
+what was injected and recovered, and whether every injection was matched.
 
 ``--arch`` runs at its smoke reduction unless ``--full`` is given.  The
 step runs on ``--device`` (default ``cuda``); the CPU runs the kernels'
@@ -74,6 +86,9 @@ Examples::
         --H 2 --seq-len 16 --rounds 2
     python -m repro_torch.launch.train --mode pod --device cpu --batch 4 \\
         --H 2 --seq-len 16 --rounds 4 --ckpt-dir ckpt --ckpt-every 2
+    python -m repro_torch.launch.train --mode pod --device cpu --batch 4 \\
+        --H 2 --seq-len 16 --rounds 6 --ckpt-dir ckpt2 --ckpt-every 1 \\
+        --faults random       # crashes; rerun the same command to resume
 
 ``--mode sim`` (``run_sim``) drives a VGG-5 ``FedOptimaLearner`` on the card
 through the event simulator over ``--devices`` heterogeneous devices
@@ -100,6 +115,7 @@ trained model is ``repro_torch.launch.serve``.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -114,6 +130,9 @@ from repro_torch.core.executor import (RoundExecutor, StragglerProfiles,
 from repro_torch.core.staging import to_device
 from repro_torch.data.partitioner import dirichlet_partition
 from repro_torch.data.synthetic import lm_dataset
+from repro_torch.faults import (POD_CLASSES, FaultSchedule, InjectedCrash,
+                                PodFaultInjector, UpdateGate,
+                                make_fault_schedule)
 from repro_torch.fleet import (FleetTrace, SelectionContext,
                                make_selection_policy, make_trace,
                                sample_cluster)
@@ -122,11 +141,11 @@ from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.elastic import ElasticRegistry
 
-#: Flags whose machinery comes with later items of ROADMAP.md's queue A:
-#: flag -> (attribute, the value that means "off", the item that brings it).
-#: Unset (None) is off too.
-LATER = {
-    "--faults": ("faults", None, "A7, the fault plane"),
+#: Sim-mode flags whose machinery comes with later items of ROADMAP.md's
+#: queue A: flag -> (attribute, the value that means "off", the item that
+#: brings it).  Unset (None) is off too.
+SIM_LATER = {
+    "--faults": ("faults", None, "A7.3a, the fault plane in the simulators"),
 }
 
 
@@ -164,6 +183,24 @@ def _fleet_trace(args, K: int, horizon: float, interval: float,
         kw["bw"] = bw
     return make_trace(spec, K, horizon, interval=interval,
                       seed=args.seed, **kw)
+
+
+def _fault_schedule(args, K: int, horizon: float,
+                    classes) -> FaultSchedule | None:
+    """Resolve --faults: a JSON artifact path (fault-schedule-v1), or
+    ``random[:density]`` — a seeded schedule over the mode's supported
+    fault classes (pod: the time axis is the round index)."""
+    spec = getattr(args, "faults", None)
+    if spec is None:
+        return None
+    if spec.endswith(".json") or os.path.exists(spec):
+        return FaultSchedule.load(spec)
+    kind, _, dens = spec.partition(":")
+    if kind != "random":
+        raise ValueError(f"unknown --faults spec {spec!r}: expected a "
+                         "schedule JSON path or 'random[:density]'")
+    return make_fault_schedule(K, horizon, seed=args.seed, classes=classes,
+                               density=float(dens) if dens else 1.0)
 
 
 def _pipeline_window(args) -> int:
@@ -239,13 +276,16 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     caller may set ``args.on_round(r, metrics)``, called as each round
     drains with its metrics as floats, and ``args.profiles``, seeded
     ``StragglerProfiles`` (uniform by default; ``--fleet-tiers`` seeds
-    them from the sampled capabilities), and may pass ``cfg`` to run
+    them from the sampled capabilities; on resume the snapshot's
+    ``summary()`` is loaded into them with ``load_summary``), and may pass
+    ``cfg`` to run
     in place of ``pod_config(args)`` (e.g. a full-width arch cut in depth
     with ``ArchConfig.scaled``).  With ``args.ckpt_dir`` the run first
     resumes from the newest verified snapshot there, if any, and saves
     every ``args.ckpt_every`` rounds; ``"history"`` then holds the rounds
-    this run ran."""
-    _refuse_later_slices(args, LATER)
+    this run ran.  With ``args.faults`` the result has ``"faults"``, the
+    injector's report, and an injected crash propagates as
+    ``InjectedCrash``."""
     window = _pipeline_window(args)
     device = torch.device(args.device)
     cfg = cfg or pod_config(args)
@@ -256,17 +296,37 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
     pool_cap = 0 if pool_cap is None else pool_cap
     spill_quant = bool(getattr(args, "spill_quant", False))
     ckpt_dir = getattr(args, "ckpt_dir", None)
-    if ckpt_dir and pool_cap > 0:
-        raise NotImplementedError(
-            f"--ckpt-dir with --pool-cap {pool_cap}: the spilled slots do "
-            "not ride the port's snapshots yet; they come with ROADMAP "
-            "item A3b (run --pool-cap 0 to checkpoint)")
     cplane = ControlPlane(G, cfg.omega, cfg.H, policy=args.policy,
                           max_delay=args.max_delay, pool_cap=pool_cap,
                           eviction=getattr(args, "eviction", None) or "share")
-    # one registry backs the executor and the spill store
+    # one registry backs the executor, the spill store and the fault gate
     reg = MetricsRegistry()
     act_store = ActivationStore(pool_cap, quant=spill_quant, metrics=reg)
+
+    # chaos plane (pod axis: round index) — built before resume so a
+    # restarted run replays the SAME schedule, minus already-fired crashes
+    faults_sched = _fault_schedule(args, G, float(max(args.rounds, 1)),
+                                   POD_CLASSES)
+    injector, fired_path = None, None
+    if faults_sched is not None:
+        needs_store = any(e.cls in ("server_crash", "torn_checkpoint")
+                          for e in faults_sched.events)
+        if needs_store and not ckpt_dir:
+            raise ValueError(
+                "--faults schedules server_crash/torn_checkpoint events: "
+                "--ckpt-dir is required so fired crash boundaries persist "
+                "across restarts and recovery has a store to resume from")
+        fired = ()
+        if ckpt_dir:
+            # a crash can fire before the first snapshot creates the dir
+            os.makedirs(ckpt_dir, exist_ok=True)
+            fired_path = os.path.join(ckpt_dir, "FAULTS_FIRED.json")
+            if os.path.exists(fired_path):
+                with open(fired_path) as f:
+                    fired = tuple(json.load(f))
+        injector = PodFaultInjector(faults_sched,
+                                    gate=UpdateGate(metrics=reg),
+                                    fired_crashes=fired)
 
     # the init on the card; on resume only its shapes and dtypes serve, as
     # the template the snapshot is restored into, straight onto the card
@@ -300,14 +360,35 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
             slice_like = {k: tree_map(lambda x: x[0], like[k])
                           for k in ("dev", "aux")}
             if "spill_store" in meta:
-                # v3 layout: extras.npz is namespaced {"retention", ...};
-                # the spilled slots' namespace comes with A3b (pool 0 here)
+                # v3 layout: extras.npz is namespaced {"retention", "spill"}
+                # — spilled ring slots ride the snapshot next to the
+                # retained per-group params
                 act_store.load_meta(meta["spill_store"])
+                if sorted(cplane.pool_occupancy) != act_store.keys:
+                    raise ValueError(
+                        f"snapshot pool bookkeeping "
+                        f"({sorted(cplane.pool_occupancy)}) disagrees with "
+                        f"its spill store ({act_store.keys})")
+                like_extras = {}
                 if len(cplane.retention):
-                    ex = store.restore_extras(ckpt_dir, start_round, {
-                        "retention": {str(g): slice_like
-                                      for g in cplane.retention.groups}})
-                    cplane.retention.load_arrays(ex["retention"])
+                    like_extras["retention"] = {
+                        str(g): slice_like for g in cplane.retention.groups}
+                if len(act_store):
+                    like_extras["spill"] = act_store.like_tree(
+                        F.gather_act_slot(like, 0))
+                if like_extras:
+                    ex = store.restore_extras(ckpt_dir, start_round,
+                                              like_extras)
+                    if "retention" in like_extras:
+                        cplane.retention.load_arrays(ex["retention"])
+                    if "spill" in like_extras:
+                        # a fill hands each leaf back at the ring's dtype,
+                        # on the ring's device
+                        ring_slot = F.gather_act_slot(state, 0)
+                        act_store.load_arrays(
+                            ex["spill"],
+                            dtypes=act_store.slot_dtypes(ring_slot),
+                            devices=act_store.slot_devices(ring_slot))
             elif len(cplane.retention):
                 # v2 layout: extras.npz holds the retention tree bare
                 cplane.retention.load_arrays(store.restore_extras(
@@ -355,18 +436,16 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
         profiles = StragglerProfiles(G)
     if resumed_meta and "profiles" in resumed_meta:
         # restore the measured EMAs so the resumed run plans the same
-        # produce/reads patterns the crashed run would have
-        ps = resumed_meta["profiles"]
-        profiles = StragglerProfiles(
-            G, beta=ps.get("beta", 0.25), step_s=ps.get("step_s"),
-            transfer_s=ps.get("transfer_s"), server_s=ps.get("server_s"))
-        profiles.n_obs = int(ps.get("n_obs", 0))
+        # produce/reads patterns the crashed run would have; into the
+        # caller's profile, which may keep state of its own in its summary
+        profiles.load_summary(resumed_meta["profiles"])
     executor = RoundExecutor(F.make_train_step(cfg), cplane, window=window,
                              profiles=profiles, gather=F.gather_group_state,
                              scatter=F.scatter_group_state,
                              registry=registry_, store=act_store,
                              gather_slot=F.gather_act_slot,
-                             scatter_slot=F.scatter_act_slot, metrics=reg)
+                             scatter_slot=F.scatter_act_slot,
+                             faults=injector, metrics=reg)
     if sel is not None and resumed_meta and "selection_rng" in resumed_meta \
             and hasattr(sel, "_rng"):
         sel._rng.bit_generator.state = resumed_meta["selection_rng"]
@@ -420,12 +499,16 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
         """Dispatch-time host bookkeeping for round r's checkpoint —
         snapshotted at the SAME boundary as the handle's tensors, so the
         eventual (possibly deferred) save describes exactly round r.  The
-        extras dict is built fresh here and the retained params it
-        references are never changed in place (a release pops), so a
-        later save sees round-r values."""
+        extras dict is built fresh here and the payloads it references
+        are never changed in place (a retention release pops, a store
+        fill pops), so a later save sees round-r values."""
+        # v3 extras layout: retention params and spilled ring slots ride
+        # the same atomic snapshot under their own namespaces
         extras = {}
         if cplane.retention.arrays():
             extras["retention"] = cplane.retention.arrays()
+        if act_store.arrays():
+            extras["spill"] = act_store.arrays()
         metadata = {"round": r + 1, "arch": cfg.arch.name,
                     "control_plane": cplane.state_dict(),
                     "spill_store": act_store.meta_dict(),
@@ -445,18 +528,31 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
         meta = handle.meta
         store.save(ckpt_dir, r + 1, handle.host_tree(),
                    metadata=meta["metadata"], extras=meta["extras"])
+        if injector is not None:
+            injector.on_checkpoint(r, ckpt_dir, r + 1)
 
     # hand the state over without keeping a reference here: one held
     # would keep the first round's server params alive for the whole run
     held = [state]
     del state
-    state, history = executor.run(
-        held.pop(), start_round, args.rounds, active_fn=active_fn,
-        batch_fn=batch_fn, on_metrics=on_metrics,
-        checkpoint_every=getattr(args, "ckpt_every", 5) if ckpt_dir else 0,
-        checkpoint_fn=checkpoint_fn if ckpt_dir else None,
-        capture_fn=capture_fn if ckpt_dir else None,
-        checkpoint_flush=bool(getattr(args, "ckpt_flush", False)))
+    try:
+        state, history = executor.run(
+            held.pop(), start_round, args.rounds, active_fn=active_fn,
+            batch_fn=batch_fn, on_metrics=on_metrics,
+            checkpoint_every=getattr(args, "ckpt_every", 5) if ckpt_dir
+            else 0,
+            checkpoint_fn=checkpoint_fn if ckpt_dir else None,
+            capture_fn=capture_fn if ckpt_dir else None,
+            checkpoint_flush=bool(getattr(args, "ckpt_flush", False)))
+    except InjectedCrash as crash:
+        # persist the fired boundary FIRST, then die: the restarted run
+        # resumes from the newest verified snapshot and must not re-fire
+        if fired_path is not None:
+            with open(fired_path, "w") as f:
+                json.dump(sorted(injector.fired_crashes), f)
+        print(f"faults: {crash} (fired boundaries "
+              f"{sorted(injector.fired_crashes)}) — restart to resume")
+        raise
     xs = executor.summary()
     print(f"checkpoints: flush_saves={xs['checkpoints']['flush_saves']} "
           f"noflush_saves={xs['checkpoints']['noflush_saves']}  "
@@ -487,15 +583,21 @@ def run_pod(args, cfg: F.FedStepConfig | None = None) -> dict:
                                      extra={"mode": "pod",
                                             "rounds": args.rounds})
     produce, reads = profiles.produce(cfg.H), profiles.reads(cfg.H)
-    return {"history": history, "final": history[-1] if history else None,
-            "executor": xs, "memory": mem, "consumed": consumed,
-            "steady_tok_s": steady, "round_stats": executor.stats,
-            "state": state, "registry": executor.metrics.snapshot(),
-            "fleet": {"available": available, "cohorts": cohorts,
-                      "roster_events": absences, "registry": registry_,
-                      "selection": sel.describe() if sel else "all",
-                      "produce_per_round": produce.sum(axis=0).tolist(),
-                      "reads_per_round": int(reads.sum())}}
+    out = {"history": history, "final": history[-1] if history else None,
+           "executor": xs, "memory": mem, "consumed": consumed,
+           "steady_tok_s": steady, "round_stats": executor.stats,
+           "state": state, "registry": executor.metrics.snapshot(),
+           "fleet": {"available": available, "cohorts": cohorts,
+                     "roster_events": absences, "registry": registry_,
+                     "selection": sel.describe() if sel else "all",
+                     "produce_per_round": produce.sum(axis=0).tolist(),
+                     "reads_per_round": int(reads.sum())}}
+    if injector is not None:
+        fr = injector.report()
+        print(f"faults: injected={fr['injected']}  "
+              f"recovered={fr['recovered']}  matched={fr['matched']}")
+        out["faults"] = fr
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -510,7 +612,7 @@ def run_sim(args) -> dict:
     ``--selection`` when given.  Prints the reference's lines and returns
     its dict; ``"registry"`` is the port's ``MetricsRegistry``
     snapshot."""
-    _refuse_later_slices(args, LATER)
+    _refuse_later_slices(args, SIM_LATER)
     from repro_torch.core.learning import FedOptimaLearner, ModelAdapter
     from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
                                              simulate_fedoptima)
@@ -726,8 +828,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-dir", default=None,
                    help="checkpoint directory (pod mode): atomic, CRC-checked "
                         "snapshots in the JAX package's layout; a rerun "
-                        "resumes from the newest verified one (pod mode "
-                        "at --pool-cap 0; sim mode ignores it)")
+                        "resumes from the newest verified one (pod mode; "
+                        "sim mode ignores it)")
     p.add_argument("--ckpt-every", type=int, default=5,
                    help="rounds between snapshots")
     p.add_argument("--ckpt-flush", action="store_true",
@@ -735,8 +837,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "synchronous save point); default: capture the "
                         "round at dispatch and save it while later rounds "
                         "stay in flight")
-    # later slices of the port: refused with NotImplementedError when set
-    p.add_argument("--faults", default=None)
+    p.add_argument("--faults", default=None,
+                   help="chaos plane (repro_torch.faults), pod mode: a "
+                        "fault-schedule JSON path, or 'random[:density]' — "
+                        "a seeded schedule of corrupt uploads, group "
+                        "timeouts, server crashes and checkpoint tears, "
+                        "injected at round boundaries (crash/tear faults "
+                        "need --ckpt-dir; an injected crash kills the run — "
+                        "rerun the same command to resume).  Sim mode "
+                        "refuses it until ROADMAP item A7.3a")
     return p
 
 

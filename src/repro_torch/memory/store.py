@@ -22,11 +22,18 @@ dequantises there.  The host never reads a payload's values: the byte
 accounting uses shapes and dtypes only.  Off the card the same code makes
 plain host copies.
 
-The torch form of the JAX package's ``memory/store.py``.  Of its
-checkpoint riding, the metadata (:meth:`ActivationStore.meta_dict`,
-:meth:`ActivationStore.load_meta`) is ported; the spilled payloads
-(``arrays``, ``load_arrays``, ``like_tree``, ``slot_dtypes``) and its
-advisory prefetch are not.
+The spilled slots ride checkpoints as the JAX package's do: the held keys
+in the snapshot's metadata (:meth:`ActivationStore.meta_dict`,
+:meth:`ActivationStore.load_meta`), the stored payloads in its extras
+under ``"spill"`` (:meth:`ActivationStore.arrays`,
+:meth:`ActivationStore.load_arrays`, with templates from
+:meth:`ActivationStore.like_tree`).  A spill's pinned payload is still
+landing when the spill returns: each entry keeps the ``copied`` event
+recorded after its copies, and :meth:`ActivationStore.arrays` waits on
+those events alone before it hands the payloads to a save.
+
+The torch form of the JAX package's ``memory/store.py``, without its
+advisory prefetch.
 """
 from __future__ import annotations
 
@@ -47,6 +54,18 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
         return x.clone()
     out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     return out.copy_(x, non_blocking=True)
+
+
+def _copied_event(payload: dict):
+    """The ``copied`` event: recorded on the current stream after a
+    spill's copies off the card, so a reader of the pinned payload can
+    wait for them alone (never the whole card).  None off the card."""
+    card = next((v.device for v in payload.values() if v.is_cuda), None)
+    if card is None:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(card))
+    return event
 
 
 def _to_device(x: torch.Tensor, device) -> torch.Tensor:
@@ -125,7 +144,7 @@ class ActivationStore:
         self.pool_cap = pool_cap
         self.quant = quant
         self._pool: dict[int, dict] = {}   # key -> {"payload", "quant",
-                                           #   "dtypes", "devices"}
+                                           #   "dtypes", "devices", "copied"}
         # registry-backed accounting (the legacy counter names below are
         # read-only properties over these instruments)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
@@ -184,7 +203,8 @@ class ActivationStore:
         self._pool[key] = {"payload": stored, "quant": self.quant,
                            "dtypes": {k: v.dtype for k, v in payload.items()},
                            "devices": {k: v.device
-                                       for k, v in payload.items()}}
+                                       for k, v in payload.items()},
+                           "copied": _copied_event(payload)}
         self._c_spills.inc()
         self._g_pool_bytes.add(_nbytes(stored))
         self._g_entries.set(len(self._pool))
@@ -221,8 +241,7 @@ class ActivationStore:
                             for k, e in self._pool.items()}}
 
     def load_meta(self, meta: dict) -> None:
-        """Restore held-key metadata; the payloads do not ride the port's
-        snapshots yet, so a held key has none."""
+        """Restore held-key metadata; payloads arrive via load_arrays."""
         entries = meta.get("entries", {})
         if len(entries) > self.pool_cap:
             raise ValueError(
@@ -230,10 +249,69 @@ class ActivationStore:
                 f"store has pool_cap={self.pool_cap}; resume with "
                 f"--pool-cap >= {len(entries)}")
         self._pool = {int(k): {"payload": None, "quant": bool(e["quant"]),
-                               "dtypes": None, "devices": None}
+                               "dtypes": None, "devices": None,
+                               "copied": None}
                       for k, e in entries.items()}
         self._g_pool_bytes.set(0)
         self._g_entries.set(len(self._pool))
+
+    def arrays(self) -> dict:
+        """Stored (possibly quantised) payloads keyed by pool key, the
+        checkpoint extras payload; empty dict when nothing is held.  Waits
+        on each entry's ``copied`` event, so every pinned payload has
+        landed; the payloads are the entries' own (a fill pops its entry
+        and never changes a payload in place)."""
+        for e in self._pool.values():
+            if e["copied"] is not None:
+                e["copied"].synchronize()
+                e["copied"] = None
+        return {str(k): e["payload"] for k, e in self._pool.items()}
+
+    def load_arrays(self, tree: dict, dtypes: dict | None = None,
+                    devices: dict | None = None) -> None:
+        """Restore payloads for held keys (``load_meta`` first).
+        ``dtypes`` maps leaf name -> dtype for dequantised fills (default
+        float32 for quantised leaves); ``devices`` maps leaf name -> the
+        device a fill hands the leaf back on (the ring's; default: the
+        host)."""
+        for k, payload in tree.items():
+            if int(k) not in self._pool:
+                raise KeyError(
+                    f"spill arrays for pool key {k} have no matching "
+                    "metadata entry — load_meta first")
+            e = self._pool[int(k)]
+            e["payload"] = {name: dict(v) if _is_quant_leaf(v) else v
+                            for name, v in payload.items()}
+            e["dtypes"] = dict(dtypes) if dtypes else None
+            e["devices"] = dict(devices) if devices else None
+            self._g_pool_bytes.add(_nbytes(e["payload"]))
+        self._g_entries.set(len(self._pool))
+
+    def like_tree(self, slot_like: dict) -> dict:
+        """Restore templates for ``checkpoint.store.restore_extras``: per
+        held key, the stored form (int8 ``q`` + 0-d float32 ``scale`` for
+        a quantised float leaf) shaped like one ring slot, as tensors on
+        the ``meta`` device."""
+        def leaf_like(x, quant):
+            if quant and x.is_floating_point():
+                return {"q": torch.empty(x.shape, dtype=torch.int8,
+                                         device="meta"),
+                        "scale": torch.empty((), dtype=torch.float32,
+                                             device="meta")}
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+
+        return {str(k): {name: leaf_like(x, e["quant"])
+                         for name, x in slot_like.items()}
+                for k, e in self._pool.items()}
+
+    def slot_dtypes(self, slot_like: dict) -> dict:
+        """Leaf-name -> dtype map for :meth:`load_arrays` after restore."""
+        return {name: x.dtype for name, x in slot_like.items()}
+
+    def slot_devices(self, slot: dict) -> dict:
+        """Leaf-name -> device map for :meth:`load_arrays`: where the ring
+        slot ``slot`` lies."""
+        return {name: x.device for name, x in slot.items()}
 
     # ------------------------------------------------------------------
 

@@ -380,8 +380,8 @@ def test_lm_batches_exact(seed):
 # (f) what comes later is refused, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-PLANE_ARGS = [("faults", "random", "A7, the fault plane"),
-              ("fault_gate", False, "A7, the fault plane")]
+PLANE_ARGS = [("faults", "random", "A7.3a, the fault plane in the simulators"),
+              ("fault_gate", False, "A7.3a, the fault plane in the simulators")]
 REFUSALS = [(name, arg, value, item) for name in tbase.REGISTRY
             for arg, value, item in PLANE_ARGS]
 

@@ -33,12 +33,12 @@ from repro_torch.checkpoint import store
 from repro_torch.convert import state_from_numpy
 from repro_torch.core import control_plane as tcp
 from repro_torch.core import executor as tex
+from repro_torch.faults import TEAR_MODES, tear_snapshot
 from repro_torch.memory import ActivationStore
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.runtime.fault_tolerance import (CheckpointPolicy,
                                                  resume_or_init)
 
-from _torch_tear import MODES, tear
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -145,23 +145,23 @@ def _tree(v):
     return {"w": np.full((4, 3), float(v)), "step": np.asarray(v, np.int64)}
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", TEAR_MODES)
 def test_restore_torn_snapshot_raises_not_half_loads(tmp_path, mode):
     d = str(tmp_path)
     store.save(d, 1, _tree(1))
-    tear(d, 1, mode)
+    tear_snapshot(d, 1, mode)
     ok, reason = store.verify_snapshot(d, 1)
     assert not ok and reason
     with pytest.raises(store.CorruptSnapshotError):
         store.restore(d, 1, _tree(0))
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", TEAR_MODES)
 def test_resume_falls_back_to_previous_verified_snapshot(tmp_path, mode):
     d = str(tmp_path)
     for s in (1, 2, 3):
         store.save(d, s, _tree(s))
-    tear(d, 3, mode)
+    tear_snapshot(d, 3, mode)
     step, skipped = store.latest_verified_step(d)
     assert step == 2
     assert [s for s, _ in skipped] == [3]
@@ -177,7 +177,7 @@ def test_resume_falls_back_to_previous_verified_snapshot(tmp_path, mode):
 def test_resume_all_torn_initializes_fresh(tmp_path):
     d = str(tmp_path)
     store.save(d, 1, _tree(1), retain=1)
-    tear(d, 1, "truncate")
+    tear_snapshot(d, 1, "truncate")
     state, start = resume_or_init(d, lambda: _tree(0))
     assert start == 0
     np.testing.assert_array_equal(state["w"], _tree(0)["w"])

@@ -528,6 +528,47 @@ def test_cuda_baseline_learner_matches_cpu(protocol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_cuda_spill_arrays_wait_on_the_copied_event(quant):
+    """A spill behind 200 ms of queued work returns at once; the store's
+    ``arrays()`` (what a checkpoint saves) then waits on the spill's own
+    ``copied`` event — past the queued work, but not past 400 ms more
+    enqueued after the spill — and hands back the slot as the stream left
+    it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: pinned copies and events")
+    from repro_torch.memory import ActivationStore
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ring = {"acts": torch.randn(2, 4, 64, 32, device="cuda", generator=gen),
+            "labels": torch.randint(0, 100, (2, 4, 64), device="cuda",
+                                    generator=gen)}
+    want = {k: v[0].cpu() for k, v in ring.items()}
+    store = ActivationStore(1, quant=quant)
+    cycles = _sleep_cycles(200)
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    store.spill(0, TF.gather_act_slot({"act_buf": ring}, 0))
+    spilled = time.perf_counter() - t0
+    assert store._pool[0]["copied"] is not None
+    torch.cuda._sleep(2 * cycles)         # later rounds, not waited for
+    later = torch.cuda.Event()
+    later.record()
+    arrays = store.arrays()
+    waited = time.perf_counter() - t0
+    assert spilled < 0.1, spilled
+    assert 0.1 < waited < 0.35, waited
+    assert not later.query()
+    payload = arrays["0"]
+    assert torch.equal(payload["labels"], want["labels"])
+    acts = TF._dequant((payload["acts"]["q"], payload["acts"]["scale"])) \
+        if quant else payload["acts"]
+    amax = float(want["acts"].abs().max())
+    err = float((acts - want["acts"]).abs().max())
+    assert err <= (amax / 254.0 + 1e-7 * amax if quant else 0.0), err
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
 def test_cuda_spill_and_fill_stay_on_the_stream(quant):
     """One ring slot's spill into the tiered store, a later in-place write
     to that slot, and its fill back, enqueued behind 200 ms of queued work

@@ -13,10 +13,10 @@ import os
 import pytest
 import torch
 
+from repro_torch.faults import tear_snapshot
 from repro_torch.launch import train
 from repro_torch.models.common import tree_leaves
 
-from _torch_tear import tear
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARGS = ["--device", "cpu", "--batch", "4", "--H", "2", "--seq-len", "16",
@@ -116,7 +116,7 @@ def test_resume_equals_the_unbroken_run_under_a_fleet_and_selection(
 def test_torn_newest_snapshot_falls_back_to_the_previous(tmp_path, capsys):
     unbroken = _run(tmp_path / "unbroken", 6, *CHURN)
     _run(tmp_path / "resumed", 4, *CHURN)
-    tear(str(tmp_path / "resumed"), 4, "bitflip")
+    tear_snapshot(str(tmp_path / "resumed"), 4, "bitflip")
     capsys.readouterr()
     rest = _run(tmp_path / "resumed", 6, *CHURN)
     out = capsys.readouterr().out

@@ -364,12 +364,13 @@ def test_driver_runs_rounds_with_retention(capsys):
 REFUSED = [  # flags, the error, what its message must name
     (["--window", "0"], ValueError, "window must be >= 1"),
     (["--pool-cap", "-1"], ValueError, "pool_cap must be >= 0"),
-    # checkpoints run since A3a at pool 0; the spilled slots are A3b's
-    (["--ckpt-dir", "ckpt", "--pool-cap", "2"], NotImplementedError, "A3b"),
-    # sim mode runs since A6a; its planes stay refused there too
+    # pod --faults runs since A7.3b: a schedule with crashes or tears
+    # needs a store to recover from
+    (["--faults", "random"], ValueError, "--ckpt-dir is required"),
+    # sim mode runs since A6a; its fault plane is A7.3a's
     (["--mode", "sim", "--faults", "random"], NotImplementedError,
-     "A7, the fault plane"),
-    (["--faults", "random"], NotImplementedError, "A7, the fault plane"),
+     "A7.3a, the fault plane in the simulators"),
+    (["--faults", "bogus"], ValueError, "unknown --faults spec"),
     (["--window", "-1"], ValueError, "window must be >= 1"),
 ]
 

@@ -434,8 +434,8 @@ def test_larger_omega_no_less_server_work():
 # what comes later is refused, naming its ROADMAP item
 # ---------------------------------------------------------------------------
 
-PLANE_ARGS = [("faults", "random", "A7, the fault plane"),
-              ("fault_gate", False, "A7, the fault plane")]
+PLANE_ARGS = [("faults", "random", "A7.3a, the fault plane in the simulators"),
+              ("fault_gate", False, "A7.3a, the fault plane in the simulators")]
 
 
 @pytest.mark.parametrize("name,value,item", PLANE_ARGS,
@@ -449,7 +449,7 @@ def test_simulator_refuses_later_planes(name, value, item):
 
 SIM_ARGS = ["--mode", "sim", "--device", "cpu", "--devices", "2",
             "--duration", "1"]
-SIM_REFUSED = [(["--faults", "random"], "A7, the fault plane")]
+SIM_REFUSED = [(["--faults", "random"], "A7.3a, the fault plane in the simulators")]
 
 
 @pytest.mark.parametrize("flags,item", SIM_REFUSED,
