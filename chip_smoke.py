@@ -97,7 +97,7 @@ exits non-zero:
 
 7. sim — the sim-mode FedOptima learner, which runs no kernel of the five
    (their counts must stay 0): (a) ``launch/train.run_sim`` at its
-   defaults on the card but ``SIM_RUN_DURATION`` (8 devices, 100
+   defaults on the card but ``SIM_RUN_DURATION`` (8 devices, 20
    simulated seconds, VGG-5 at
    16x16, ω=8, H=10, pool = ω): the flow cap held, accuracy above chance;
    its idle fractions, throughput, accuracy, memory line, balance, wall
@@ -197,7 +197,7 @@ exits non-zero:
    kernel); the events by kind and the host seconds per round (plan and
    ``step()`` dispatch of each run, and the sanitizer's own checks)
    printed.  (b) ``run_sim`` on the card under ``--fleet-trace flaky`` for
-   60 simulated s, sanitized: 0 violations, departures checked, the event
+   20 simulated s, sanitized: 0 violations, departures checked, the event
    metrics equal to the host run with no learner and no sanitizer.  (c)
    FedAsync with its VGG-5 learner under phase 10 (c)'s trace, sanitized:
    0 violations, every ``Metrics`` field equal to the host run's.  (b)
@@ -233,7 +233,18 @@ exits non-zero:
    next save boundary.  The crash must fire; the rerun of the command
    skips the torn snapshot, resumes from the newest verified one, and
    ends with ``matched: true``, one injection of each class and finite
-   losses.  The phase prints its seconds.
+   losses.  Then the simulators' fault plane, which runs no kernel of the
+   five (their counts must stay 0 over (e) and (f)): (e) ``run_sim`` at
+   phase 7 (a)'s defaults on the card under ``--faults random:2`` for 40
+   simulated s (``SIM_FAULT_FLAGS``), sanitized: ``matched: true``,
+   faults injected, the gate rejecting some, 0 violations, every
+   ``Metrics`` field (``faults`` included) equal to the same
+   ``simulate_fedoptima`` call on the host with no learner, the hook
+   counts the simulator's and the losses finite; (f) FedAsync and
+   SplitFed with their VGG-5 learners at phase 8 (c)'s size (K=4, 20
+   simulated s) under a density-2 ``BASELINE_CLASSES`` schedule
+   (``BASE_FAULT_SCHEDULE``), with the same checks against the host run.
+   Each leg and the phase print their seconds.
 
 Each part's seconds are printed on its ``[time]`` line.
 
@@ -1794,9 +1805,9 @@ SIM_MODELS = {  # name: (module, config, l_split, lr)
 }
 SIM_SAMPLES = 1024
 SIM_MODEL_DURATION = 10.0
-# (a): run_sim's defaults but 50 simulated seconds, to keep the script
+# (a): run_sim's defaults but 20 simulated seconds, to keep the script
 # inside its time
-SIM_RUN_DURATION = 50.0
+SIM_RUN_DURATION = 20.0
 # the baselines that train the whole model on the device (FullModelLearner);
 # SplitFed, PiPar and OAFL train a split one (SplitLearner)
 FULL_MODEL = ("fl", "fedasync", "fedbuff")
@@ -1859,14 +1870,14 @@ def _sim_datasets(cfg, K, samples=SIM_SAMPLES, seed=0):
 
 def sim_learner_run(torch, adapter, datasets, l_split, device, duration,
                     init=None, hooks=None, lr=0.05, protocol="fedoptima",
-                    fleet=None):
+                    fleet=None, faults=None):
     """A protocol's learner through its simulator over
     ``heterogeneous_cluster(K)`` at H=10: ``"fedoptima"``'s through
     ``simulate_fedoptima`` (ω=8, pool 8), a baseline's (``baselines.
     REGISTRY``) through its own, with ``FullModelLearner`` or
     ``SplitLearner``.  ``init``: (the full model's params, aux params),
-    or None to draw them from seed 0.  ``fleet``: a ``FleetTrace`` for a
-    baseline's run.  Returns (Metrics, the ControlPlane or None,
+    or None to draw them from seed 0.  ``fleet``, ``faults``: a
+    ``FleetTrace`` and a ``FaultSchedule`` for a baseline's run.  Returns (Metrics, the ControlPlane or None,
     learner)."""
     from repro_torch.core.baselines import REGISTRY
     from repro_torch.core.control_plane import ControlPlane
@@ -1893,7 +1904,7 @@ def sim_learner_run(torch, adapter, datasets, l_split, device, duration,
         SplitLearner(adapter, datasets, l_split, **kw)
     m = REGISTRY[protocol](model, cluster, duration=duration, H=10,
                            hooks=learner if hooks is None else hooks(learner),
-                           fleet=fleet)
+                           fleet=fleet, faults=faults)
     return m, None, learner
 
 
@@ -2493,6 +2504,7 @@ def host_sim(args) -> tuple[dict, object]:
     from repro_torch.core.executor import StragglerProfiles
     from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
                                              simulate_fedoptima)
+    from repro_torch.faults import SIM_CLASSES
     from repro_torch.fleet import sample_cluster
     from repro_torch.launch import train
     omega, H = 8, 10                    # run_sim's defaults, pool = omega
@@ -2509,7 +2521,10 @@ def host_sim(args) -> tuple[dict, object]:
                            policy=args.policy, max_delay=args.max_delay,
                            pool_cap=omega, seed=args.seed, fleet=fleet,
                            selection=args.selection, control=control,
-                           profiles=profiles)
+                           profiles=profiles,
+                           faults=train._fault_schedule(
+                               args, args.devices, args.duration,
+                               SIM_CLASSES))
     host = {"srv_idle": m.srv_idle_frac, "dev_idle": m.dev_idle_frac,
             "throughput": m.throughput, "profiles": profiles.summary(),
             "produce_per_round": profiles.produce(H).sum(axis=0).tolist(),
@@ -2519,6 +2534,8 @@ def host_sim(args) -> tuple[dict, object]:
             "contribution_balance": m.contribution_balance(),
             "steady": m.steady_summary(),
             "registry": m.to_registry().snapshot()}
+    if m.faults is not None:
+        host["faults"] = m.faults
     return host, m
 
 
@@ -2862,9 +2879,10 @@ SANITIZE_POD_KINDS = {"cp.plan", "cp.finish", "exec.round", "flow.register",
                       "flow.grant", "flow.sent", "flow.enqueue",
                       "flow.dequeue", "sched.add", "store.spill",
                       "store.fill"}
-# (b): run_sim under a flaky trace for 60 simulated seconds
+# (b): run_sim under a flaky trace for 20 simulated seconds (9
+# departures, as many as in 60)
 SANITIZE_SIM_FLAGS = ["--mode", "sim", "--fleet-trace", "flaky",
-                      "--duration", "60"]
+                      "--duration", "20"]
 
 
 def timed_sanitizer():
@@ -3349,6 +3367,143 @@ def ckpt_fault_leg(torch, counters, want, saves, resumes) -> dict:
     return {"faults": fr, "launches": rest["launches"]}
 
 
+# (e) and (f), the simulators' fault plane; no kernel of the five runs.
+# (e): run_sim at phase 7 (a)'s defaults (8 devices, VGG-5 16x16, ω=8,
+# H=10, pool 8) under a density-2 schedule of the six simulator classes
+# for 40 simulated s, sanitized (seed 0: 23 faults injected, 8 gate
+# rejects).  (f): phase 8 (c)'s size (VGG-5 32x32, K=4, 20 simulated s)
+# under a density-2 schedule of the baseline classes; seed 3 is the first
+# whose corrupt model upload lands inside 20 s for both protocols, so
+# the gate acts in each.
+SIM_FAULT_FLAGS = ["--mode", "sim", "--faults", "random:2",
+                   "--duration", "40"]
+BASE_FAULT_PROTOCOLS = ("fedasync", "splitfed")
+BASE_FAULT_SCHEDULE = dict(density=2.0, seed=3)
+
+
+def _check_faults(tag, fr) -> None:
+    """Every injected fault recovered, some injected, the gate acted."""
+    if not (fr["matched"] and sum(fr["injected"].values()) > 0
+            and fr["gate"]["n_rejected"] > 0):
+        raise AssertionError(f"{tag}: fault report {fr}")
+
+
+def faults_sim(torch) -> dict:
+    """(e): ``run_sim`` on the card under ``SIM_FAULT_FLAGS`` with the
+    sanitizer attached.  Its ``simulate_fedoptima`` call is wrapped to
+    keep the Metrics and time the hooks (``TimedHooks``): every
+    ``Metrics`` field, ``faults`` included, equals the same call on the
+    host with no learner; the hook counts are the simulator's, the losses
+    finite, 0 violations."""
+    from repro_torch.analysis.sanitize import sanitized
+    from repro_torch.core import simulation
+    from repro_torch.launch import train
+    args = train.build_parser().parse_args(SIM_FAULT_FLAGS)
+    orig, seen = simulation.simulate_fedoptima, {}
+
+    def capture(*a, **kw):
+        seen["hooks"] = kw["hooks"] = TimedHooks(torch, kw["hooks"])
+        seen["control"] = kw["control"]
+        seen["m"] = orig(*a, **kw)
+        return seen["m"]
+    simulation.simulate_fedoptima = capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with sanitized() as san:
+            out = train.run_sim(args)
+    finally:
+        simulation.simulate_fedoptima = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host, host_m = host_sim(args)
+    m, th = seen["m"], seen["hooks"]
+    a, b = _metrics_view(m), _metrics_view(host_m)
+    diff = [k for k in host if out[k] != host[k]] + \
+        [k for k in b if a[k] != b[k]]
+    _check_hook_counts("faults (e)", m, seen["control"], th.learner)
+    finite = bool(torch.isfinite(torch.stack(th.losses)).all())
+    rep, fr = san.report(), out["faults"]
+    n = {k: len(v) for k, v in th.ms.items()}
+    print(f"[ckpt] (e) run_sim {' '.join(SIM_FAULT_FLAGS[2:])} on "
+          f"{args.device}, sanitized: {args.devices} devices, "
+          f"{args.duration} s simulated | faults injected {fr['injected']}, "
+          f"recovered {fr['recovered']}, dispositions {fr['disposition']}, "
+          f"matched {fr['matched']}, gate rejects {fr['gate']['n_rejected']}"
+          f" | {rep['events']} events, {rep['n_violations']} violations, "
+          f"flow.quarantine {rep['by_kind'].get('flow.quarantine', 0)} | "
+          f"{n['device_iter']} device / {n['server_train']} server steps / "
+          f"{n['aggregate']} aggregations, counts equal to the Metrics', "
+          f"losses finite {finite} | srv idle {out['srv_idle']:.4f} dev "
+          f"idle {out['dev_idle']:.4f} throughput {out['throughput']:.2f} "
+          f"accuracy {out['accuracy']:.4f} | every Metrics field equal to "
+          f"the host run with no learner: {not diff} | wall {wall:.2f} s",
+          flush=True)
+    if diff or rep["n_violations"] or not finite:
+        raise AssertionError(f"faults (e): differs in {diff}, violations "
+                             f"{rep['violations']}, losses finite {finite}")
+    _check_faults("faults (e)", fr)
+    return {"faults": fr, "wall_s": wall, "calls": n}
+
+
+def faults_baselines(torch) -> dict:
+    """(f): ``BASE_FAULT_PROTOCOLS`` with their VGG-5 learners on the card
+    under one ``BASELINE_CLASSES`` schedule (K=4, 20 simulated s); every
+    ``Metrics`` field, ``faults`` included, equal to the host run with no
+    learner, the hook counts the simulator's, losses finite."""
+    from repro_torch.core.baselines import REGISTRY
+    from repro_torch.core.learning import ModelAdapter
+    from repro_torch.core.simulation import SimModel, heterogeneous_cluster
+    from repro_torch.faults import BASELINE_CLASSES, make_fault_schedule
+    from repro_torch.models import cnn
+    img, K, duration = (SIM_CARD_CPU[k] for k in ("img", "K", "duration"))
+    cfg = cnn.vgg5_config(img_size=img)
+    adapter = ModelAdapter(cnn, cfg)
+    sched = make_fault_schedule(K, duration, classes=BASELINE_CLASSES,
+                                **BASE_FAULT_SCHEDULE)
+    out = {}
+    for protocol in BASE_FAULT_PROTOCOLS:
+        timed = {}
+
+        def hooks(learner):
+            timed["hooks"] = TimedHooks(torch, learner)
+            return timed["hooks"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, _, learner = sim_learner_run(
+            torch, adapter, _sim_datasets(cfg, K), 1, "cuda", duration,
+            hooks=hooks, protocol=protocol, faults=sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        th = timed["hooks"]
+        _check_hook_counts(f"faults (f) {protocol}", m, None, learner, th,
+                           protocol)
+        finite = bool(torch.isfinite(torch.stack(th.losses)).all())
+        host = REGISTRY[protocol](SimModel(**SIM_COSTS),
+                                  heterogeneous_cluster(K),
+                                  duration=duration, H=10, faults=sched)
+        a, b = _metrics_view(m), _metrics_view(host)
+        diff = [k for k in b if a[k] != b[k]]
+        fr = m.faults
+        n = {k: len(v) for k, v in th.ms.items()}
+        print(f"[ckpt] (f) {protocol}: VGG-5 {img}x{img}, K={K}, "
+              f"{duration} s simulated, schedule {BASE_FAULT_SCHEDULE} of "
+              f"{sched.counts()} | injected {fr['injected']}, dispositions "
+              f"{fr['disposition']}, matched {fr['matched']}, gate rejects "
+              f"{fr['gate']['n_rejected']} | {n['device_iter']} device / "
+              f"{n['server_train']} server steps / "
+              f"{n['aggregate'] + n['sync_aggregate']} aggregations, counts "
+              f"equal to the Metrics', losses finite {finite} | every "
+              f"Metrics field equal to the host run with no learner: "
+              f"{not diff} | wall {wall:.2f} s", flush=True)
+        if diff or not finite:
+            raise AssertionError(f"faults (f) {protocol}: differs in {diff}"
+                                 f", losses finite {finite}")
+        _check_faults(f"faults (f) {protocol}", fr)
+        out[protocol] = {"faults": fr, "wall_s": wall, "calls": n}
+    return out
+
+
 def phase_checkpoint(torch, counters) -> dict:
     """Phase 13 (see the module docstring): save, tear down, resume, on
     the card, against the unbroken run."""
@@ -3461,6 +3616,20 @@ def phase_checkpoint(torch, counters) -> dict:
     t1 = time.perf_counter()
     results["d"] = ckpt_fault_leg(torch, counters, want, saves, resumes)
     print(f"[ckpt] (d) {time.perf_counter() - t1:.0f} s", flush=True)
+    for c in counters:
+        c.reset_launches()
+    t1 = time.perf_counter()
+    results["e"] = faults_sim(torch)
+    print(f"[ckpt] (e) {time.perf_counter() - t1:.0f} s", flush=True)
+    t1 = time.perf_counter()
+    results["f"] = faults_baselines(torch)
+    print(f"[ckpt] (f) {time.perf_counter() - t1:.0f} s", flush=True)
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    if any(launches.values()):
+        raise AssertionError(f"checkpoints: a kernel of the five ran in (e)"
+                             f" or (f): {launches}")
+    print(f"[ckpt] kernel launches over (e) and (f): {launches}",
+          flush=True)
     mean = lambda xs: statistics.mean(xs) if xs else float("nan")
     parts = ("host_copy", "to_numpy", "crc", "write_fsync", "save")
     per_part = {p: [s[p] for s in saves if p in s] for p in parts}

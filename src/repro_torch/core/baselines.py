@@ -26,9 +26,16 @@ later tie), and the same metrics, bit for bit.  With a tracer attached
 the busy intervals carry the reference's span names and lanes (PiPar's
 overlapped forward on the ``dev/<k>/pipe`` sub-lane) and the churn seams
 emit ``leave``/``join`` instants, so the sim-domain traces are equal too.
-The ``faults=`` and ``fault_gate=`` planes are refused with the ROADMAP
-item that brings them (A7.3a), as ``simulate_fedoptima`` refuses them.
-With a protocol sanitizer attached the async and split loops emit the
+Every protocol also accepts ``faults=`` (a
+``repro_torch.faults.FaultSchedule`` or a prebuilt ``FaultInjector``): the
+subset of the chaos taxonomy a full-model protocol can express —
+corrupted model uploads, delayed arrivals, device timeouts mid-round
+(``repro_torch.faults.BASELINE_CLASSES``) — is injected at the same named
+seams as FedOptima's, so clean-vs-faulted degradation is compared
+like-for-like, and ``Metrics.faults`` is the reference's report.
+``fault_gate`` mirrors ``simulate_fedoptima``: None = default
+``UpdateGate``, False = no armor (poison flows into aggregation), an
+instance = used as-is.  With a protocol sanitizer attached the async and split loops emit the
 reference's ``sim.*`` chain and roster events (chain events in the split
 loop only without the sync barrier).  ``seed`` is unused, as in the
 reference.
@@ -38,15 +45,21 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.analysis import sanitize as _san
+from repro_torch.faults.inject import FaultInjector, install_timeouts
+from repro_torch.faults.quarantine import UpdateGate
 from repro_torch.fleet.traces import install_fleet, resolve_fleet
 from repro_torch.obs import trace as _tr
 
-from . import simulation
-from .simulation import Metrics, Sim, SimCluster, SimModel, refuse_later
+from .simulation import Metrics, Sim, SimCluster, SimModel
 
-#: baseline arguments whose planes come with ROADMAP item A7.3a:
-#: argument -> (the value that means "off", the item that brings it).
-LATER = {name: simulation.LATER[name] for name in ("faults", "fault_gate")}
+
+def _resolve_injector(faults, fault_gate) -> FaultInjector | None:
+    if faults is None:
+        return None
+    if isinstance(faults, FaultInjector):
+        return faults
+    gate = UpdateGate() if fault_gate is None else (fault_gate or None)
+    return FaultInjector.for_baseline(faults, gate=gate)
 
 
 # ---------------------------------------------------------------------------
@@ -57,11 +70,10 @@ def simulate_classic_fl(model: SimModel, cluster: SimCluster, *,
                         duration: float, H: int = 10, hooks=None,
                         churn=None, fleet=None, seed: int = 0,
                         faults=None, fault_gate=None) -> Metrics:
-    refuse_later(LATER, "simulate_classic_fl", faults=faults,
-                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
+    inj = _resolve_injector(faults, fault_gate)
     t_iter = [3 * model.full_fwd_flops / cluster.dev_flops[k] for k in range(K)]
     trace = resolve_fleet(fleet, churn, cluster, duration)
     active = np.ones(K, bool)
@@ -98,11 +110,24 @@ def simulate_classic_fl(model: SimModel, cluster: SimCluster, *,
             else:
                 tx = model.full_model_bytes / bw[k]
                 m.bytes_up += model.full_model_bytes
-                sim.after(tx, arrive, k)
+                extra, ckind = inj.tag_model_upload(k, sim.t) \
+                    if inj is not None else (0.0, "")
+                sim.after(tx + extra, arrive, k, ckind, extra > 0.0)
         sim.after(t_iter[k], done)
 
-    def arrive(k):
-        if k is not None:
+    def arrive(k, ckind="", delayed=False):
+        ok = True
+        if inj is not None and k is not None:
+            if delayed:
+                # sync FL has no staleness machinery: the barrier simply
+                # waited — the delay is absorbed as round latency
+                inj.note_delayed_arrival()
+            if ckind:
+                # quarantined contribution is dropped, but its barrier
+                # slot must still release (a sync round can't wait on a
+                # poisoned update forever)
+                ok, _ = inj.model_validate(k, ckind, sim.t)
+        if k is not None and ok:
             m.note_contribution(k)
         pending["n"] -= 1
         if pending["n"] <= 0:
@@ -119,8 +144,12 @@ def simulate_classic_fl(model: SimModel, cluster: SimCluster, *,
             sim.after(dt, agg_done)
 
     install_fleet(sim, trace, active, bw)
+    install_timeouts(sim, inj, active, trace)
     start_round()
     sim.run(duration)
+    if inj is not None:
+        inj.finalize(duration)
+        m.faults = inj.report()
     return m
 
 
@@ -128,11 +157,10 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
                          H, buffer_size, hooks, churn, fleet, seed,
                          faults=None, fault_gate=None) -> Metrics:
     """Shared core of FedAsync (buffer_size=1) and FedBuff (buffer_size=Z)."""
-    refuse_later(LATER, "_simulate_async_full", faults=faults,
-                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
+    inj = _resolve_injector(faults, fault_gate)
     t_iter = [3 * model.full_fwd_flops / cluster.dev_flops[k] for k in range(K)]
     trace = resolve_fleet(fleet, churn, cluster, duration)
     active = np.ones(K, bool)
@@ -191,10 +219,25 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
             else:
                 tx = model.full_model_bytes / bw[k]
                 m.bytes_up += model.full_model_bytes
-                sim.after(tx, arrive, k, e)
+                extra, ckind = inj.tag_model_upload(k, sim.t) \
+                    if inj is not None else (0.0, "")
+                sim.after(tx + extra, arrive, k, e, ckind, extra > 0.0)
         sim.after(t_iter[k], done)
 
-    def arrive(k, e):
+    def arrive(k, e, ckind="", delayed=False):
+        if inj is not None and delayed:
+            # async aggregation absorbs stale arrivals by design (FedAsync
+            # α-decay / FedBuff buffer mixing)
+            inj.note_delayed_arrival()
+        if inj is not None and ckind:
+            ok, backoff = inj.model_validate(k, ckind, sim.t)
+            if not ok:
+                # quarantined before the buffer: the device re-downloads
+                # the current global after its strike backoff
+                tx = model.full_model_bytes / bw[k] if active[k] else 0.0
+                m.bytes_down += model.full_model_bytes if active[k] else 0.0
+                sim.after(backoff + tx, model_back, k, e)
+                return
         queue.append((k, e))
         srv["buffer"] += 1
         kick()
@@ -236,9 +279,14 @@ def _simulate_async_full(model: SimModel, cluster: SimCluster, *, duration,
 
     install_fleet(sim, trace, active, bw, on_leave=on_leave,
                   on_rejoin=on_rejoin)
+    install_timeouts(sim, inj, active, trace, on_leave=on_leave,
+                     on_rejoin=on_rejoin)
     for k in range(K):
         dev_round(k)
     sim.run(duration)
+    if inj is not None:
+        inj.finalize(duration)
+        m.faults = inj.report()
     return m
 
 
@@ -275,11 +323,10 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
     pipeline=True  -> PiPar (device overlaps next fwd while waiting)
     sync_agg=False -> OAFL (async aggregation at round end, no barrier)
     """
-    refuse_later(LATER, "_simulate_split", faults=faults,
-                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
+    inj = _resolve_injector(faults, fault_gate)
     trace = resolve_fleet(fleet, churn, cluster, duration)
     active = np.ones(K, bool)
     bw = cluster.dev_bw.astype(float).copy()
@@ -407,10 +454,30 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
             else:
                 tx = model.dev_model_bytes / bw[k]
                 m.bytes_up += model.dev_model_bytes
-                sim.after(tx, model_arrive, k, e)
+                extra, ckind = inj.tag_model_upload(k, sim.t) \
+                    if inj is not None else (0.0, "")
+                sim.after(tx + extra, model_arrive, k, e, ckind,
+                          extra > 0.0)
         sim.after(t_bwd[k], bwd_done)
 
-    def model_arrive(k, e):
+    def model_arrive(k, e, ckind="", delayed=False):
+        if inj is not None and delayed:
+            inj.note_delayed_arrival()
+        if inj is not None and ckind:
+            ok, backoff = inj.model_validate(k, ckind, sim.t)
+            if not ok:
+                if sync_agg:
+                    # quarantined: the contribution is dropped but the
+                    # barrier slot still releases
+                    barrier_arrive()
+                else:
+                    # OAFL: skip aggregation; the device re-syncs after
+                    # its strike backoff
+                    tx = model.dev_model_bytes / bw[k] if active[k] else 0.0
+                    m.bytes_down += model.dev_model_bytes \
+                        if active[k] else 0.0
+                    sim.after(backoff + tx, model_back, k, e)
+                return
         if sync_agg:
             barrier_arrive()
         else:
@@ -470,12 +537,18 @@ def _simulate_split(model: SimModel, cluster: SimCluster, *, duration, H,
     install_fleet(sim, trace, active, bw,
                   on_leave=None if sync_agg else on_leave,
                   on_rejoin=None if sync_agg else on_rejoin)
+    install_timeouts(sim, inj, active, trace,
+                     on_leave=None if sync_agg else on_leave,
+                     on_rejoin=None if sync_agg else on_rejoin)
     if sync_agg:
         start_round()
     else:
         for k in range(K):
             dev_round(k)
     sim.run(duration)
+    if inj is not None:
+        inj.finalize(duration)
+        m.faults = inj.report()
     return m
 
 

@@ -16,9 +16,9 @@ the dequeues that bring such a unit back under it.  This is accounting
 only (the event simulator's default budget); no store is involved.  With
 ``pool_cap == 0`` the controller is the strict Eq. 3 one, bit for bit.
 
-A copy of the JAX package's controller, its sanitizer emits included,
-without its quarantine path (``on_quarantined`` and its
-``flow.quarantine`` emit), which comes with the fault plane.
+A copy of the JAX package's controller, its sanitizer emits included.
+``on_quarantined`` is the simulators' fault-plane seam: a poisoned
+arrival that the update gate rejects gives back its in-flight unit.
 """
 from __future__ import annotations
 
@@ -112,6 +112,24 @@ class FlowController:
         self._maybe_grant()
         if _san.TRACING:
             _san.emit("flow.dequeue", flow=self, device=k)
+
+    def on_quarantined(self, k: int):
+        """An arriving batch failed validation (poison quarantine): the
+        send happened — ``mark_sent`` moved a token into in-flight — but
+        the payload must never be buffered.  Withdraw exactly one in-flight
+        unit and re-grant, so Eq. 3 conservation holds with the quarantined
+        unit simply returned to the budget (``buffered`` is untouched: a
+        quarantined batch never entered a tier, so the spill/fill counters
+        stay exact)."""
+        n = self.inflight_by.get(k, 0)
+        if n == 1:
+            self.inflight_by.pop(k)
+        elif n > 1:
+            self.inflight_by[k] = n - 1
+        self._maybe_grant()
+        if _san.TRACING:
+            _san.emit("flow.quarantine", flow=self, device=k,
+                      withdrawn=n > 0)
 
     def on_device_left(self, k: int):
         """Reclaim a dropped device's token and in-flight sends."""

@@ -22,10 +22,13 @@ sim domain, in the reference's emission order, so the traces are equal
 too.  With a protocol sanitizer attached
 (``repro_torch.analysis.sanitize``) the device chains and the roster
 changes emit the reference's ``sim.*`` events, field for field, so the
-event streams are equal as well.  Fault injection is refused with the
-ROADMAP item that brings it (A7.3a, the fault plane in the simulators;
-the pod round's half is in ``repro_torch.faults``).  The baselines
-(``core/baselines.py``) run on the same engine and ``Metrics``.
+event streams are equal as well.  With a fault schedule
+(``repro_torch.faults``) the injector's seams sit where the reference's
+do: duplicated and delayed uploads push their extra arrivals in the same
+order, quarantines and server crashes push the same re-syncs, and
+``Metrics.faults`` is the reference's report.  Poison is a tag on the
+message, never a value: a quarantined batch never reaches the hooks.  The
+baselines (``core/baselines.py``) run on the same engine and ``Metrics``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.analysis import sanitize as _san
+from repro_torch.faults.inject import FaultInjector, install_timeouts
+from repro_torch.faults.quarantine import UpdateGate
 from repro_torch.fleet.devices import heterogeneous_cluster  # noqa: F401
 from repro_torch.fleet.selection import (SelectionContext, balance_summary,
                                          make_selection_policy)
@@ -45,31 +50,12 @@ from .control_plane import ControlPlane
 from .executor import StragglerProfiles
 from .scheduler import Message
 
-#: simulate_fedoptima arguments whose planes come with ROADMAP item A7.3a:
-#: argument -> (the value that means "off", the item that brings it).
-LATER = {
-    "faults": (None, "A7.3a, the fault plane in the simulators"),
-    "fault_gate": (None, "A7.3a, the fault plane in the simulators"),
-}
-
 # test-only mutation hook: True re-introduces the churn-flap bug — the
 # per-device epoch check in ``model_return`` is skipped, so a
 # pre-departure round's return restarts the device on top of its rejoined
 # chain and the sanitizer's single-live-chain invariant must fire.  Never
 # set outside tests.
 _TEST_SKIP_EPOCH_CHECK = False
-
-
-def refuse_later(table: dict, call: str, **planes) -> None:
-    """Raise ``NotImplementedError`` for the first plane argument of
-    ``call`` that is not off, naming the ROADMAP item that brings it
-    (``table``: argument -> (its off value, the item))."""
-    for name, value in planes.items():
-        off, later = table[name]
-        if value != off:
-            raise NotImplementedError(
-                f"{call}({name}={value!r}): not in the torch port yet; it "
-                f"comes with ROADMAP item {later}")
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +113,8 @@ class Sim:
 
 @dataclass
 class Metrics:
-    """The run's accounting.  The reference's ``faults`` field, which only
-    its fault plane fills, comes with item A7.3a.  ``rounds`` counts the
-    synchronous baselines' rounds; ``simulate_fedoptima`` never sets
-    it."""
+    """The run's accounting.  ``rounds`` counts the synchronous
+    baselines' rounds; ``simulate_fedoptima`` never sets it."""
     K: int
     duration: float = 0.0
     dev_busy: np.ndarray = None
@@ -147,6 +131,10 @@ class Metrics:
                                          # server consumed
     registry: object = None              # ElasticRegistry mirroring trace
                                          # join/leave events (fleet runs)
+    faults: dict = None                  # FaultInjector.report() for runs
+                                         # under a fault schedule: per-class
+                                         # injected/recovered/disposition
+                                         # counters + gate summary
     # -- steady-state (warmup-excluded) accounting: warmup ends at the
     #    server's first dequeue (pipeline fill); see note_warmup_end
     warmup_t: float = None
@@ -319,14 +307,21 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         static identity trace for its ticks.
     registry (optional): an ``ElasticRegistry`` mirroring the roster; a
         fleet run makes one.  Returned on ``Metrics.registry``.
-    faults, fault_gate: the fault plane of ROADMAP item A7.3a; anything
-        but their default raises ``NotImplementedError``.
+    faults (optional): a ``repro_torch.faults.FaultSchedule`` (or a
+        prebuilt ``FaultInjector``) played into the run's seams — upload
+        corruption, duplicate/delayed arrivals, device timeouts, server
+        crashes.  Every injected fault is matched by a recovery counter
+        on ``Metrics.faults`` (quarantine, dedupe, α-weighting, rejoin,
+        restart; see ``repro_torch.faults.inject``).
+    fault_gate: the poison-update validation gate paired with
+        ``faults``: None builds a default ``UpdateGate``, an instance is
+        used as-is, and False disables the gate (poisoned updates flow
+        into training unrecovered; ``Metrics.faults["matched"]`` is then
+        False).
     metrics_every: simulated-seconds cadence for a one-line metrics dump
         (stdout); 0 disables.  Pure print — scheduling it perturbs no
         run state.
     """
-    refuse_later(LATER, "simulate_fedoptima", faults=faults,
-                 fault_gate=fault_gate)
     sim = Sim()
     K = cluster.K
     m = Metrics(K=K, duration=duration)
@@ -353,6 +348,15 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
     m.profiles = prof
     sched = cp.scheduler
     flow = cp.flow
+
+    inj = None
+    if faults is not None:
+        if isinstance(faults, FaultInjector):
+            inj = faults
+        else:
+            gate = UpdateGate() if fault_gate is None else \
+                (fault_gate or None)
+            inj = FaultInjector(faults, gate=gate)
 
     trace = resolve_fleet(fleet, churn, cluster, duration)
     sel = make_selection_policy(selection, seed=seed)
@@ -417,7 +421,8 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
             return
         m.note_dev_busy(k, start, sim.t, samples=model.batch_size)
         prof.observe_group(k, step_s=sim.t - start)
-        send = flow.can_send(k)
+        send = flow.can_send(k) and \
+            (inj is None or inj.may_send(k, sim.t))
         if send:
             flow.mark_sent(k)
             tx = model.act_bytes / bw[k]
@@ -426,7 +431,13 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
             if _tr.TRACING:
                 _tr.emit_span(f"net/{k}", "act_upload", sim.t, sim.t + tx,
                               clip=True)
-            sim.after(tx, act_arrive, k)
+            tag = inj.tag_act_upload(k, sim.t) if inj is not None else None
+            sim.after(tx, act_arrive, k, tag)
+            if tag is not None and tag["dup_extra"] is not None:
+                # injected duplicate: the copy ships too, delayed — it may
+                # land reordered past other devices' arrivals
+                m.bytes_up += model.act_bytes
+                sim.after(tx + tag["dup_extra"], act_arrive, k, tag)
         if hooks:
             hooks.device_iter(k, send)
         if h_left > 1:
@@ -438,18 +449,33 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
             if _tr.TRACING:
                 _tr.emit_span(f"net/{k}", "model_upload", sim.t, sim.t + tx,
                               clip=True)
-            sim.after(tx, model_arrive, k, e)
+            extra, ckind = inj.tag_model_upload(k, sim.t) \
+                if inj is not None else (0.0, "")
+            sim.after(tx + extra, model_arrive, k, e, ckind, extra > 0.0)
 
-    def act_arrive(k):
+    def act_arrive(k, tag=None):
+        if tag is not None and tag["dup_extra"] is not None and \
+                not inj.act_dedupe(tag["seq"]):
+            return              # second delivery of a duplicated upload
         if not active[k]:
             flow.on_device_left(k)
+            return
+        poisoned = bool(tag and tag["kind"])
+        if inj is not None and not inj.act_validate(k, tag, sim.t):
+            # quarantined before it touches a queue: withdraw the in-flight
+            # unit so Eq. 3 and the Alg. 3 counters stay conserved
+            flow.on_quarantined(k)
             return
         if not flow.on_enqueue(k):
             # zombie packet: the sender dropped (its in-flight budget was
             # reclaimed) and rejoined before this arrival — reject it so
             # the ω cap stays strict
             return
-        sched.put(Message("activation", k, size_bytes=model.act_bytes,
+        if inj is not None and not poisoned:
+            inj.note_accept(k)          # clean update: forgive one strike
+        sched.put(Message("activation", k,
+                          content="poison" if poisoned else None,
+                          size_bytes=model.act_bytes,
                           enqueued_at=sim.t))
         m.max_buffered = max(m.max_buffered, sched.total_buffered)
         cp.note_buffered(sched.total_buffered)
@@ -460,7 +486,21 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
                 f"promised={flow.promised} of cap={flow.cap}")
         kick_server()
 
-    def model_arrive(k, e):
+    def model_arrive(k, e, ckind="", delayed=False):
+        if inj is not None and delayed:
+            # late arrival (possibly past max_delay): Alg. 4's staleness
+            # weighting at aggregation is the armor — nothing to drop here
+            inj.note_delayed_arrival()
+        if inj is not None and ckind:
+            ok, backoff = inj.model_validate(k, ckind, sim.t)
+            if not ok:
+                # quarantined: the poisoned update never reaches Q_model;
+                # re-sync the device after its strike backoff so the chain
+                # survives without consuming the update
+                tx = model.dev_model_bytes / bw[k] if active[k] else 0.0
+                m.bytes_down += model.dev_model_bytes if active[k] else 0.0
+                sim.after(backoff + tx, model_return, k, e)
+                return
         # the shipping chain's epoch rides the message so the eventual
         # model_return can tell a pre-departure upload from a live one
         sched.put(Message("model", k, content=(int(versions[k]), int(e))))
@@ -484,7 +524,7 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
             flow.on_dequeue(msg.origin)
             dt = model.srv_flops_per_batch / cluster.srv_flops
             sim.after(dt, server_train_done, msg.origin, sim.t,
-                      srv_state["epoch"])
+                      msg.content == "poison", srv_state["epoch"])
 
     def server_agg_done(k, start, e, se=0):
         if se != srv_state["epoch"]:
@@ -512,7 +552,7 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         running[k] = False
         device_start_round(k, H)
 
-    def server_train_done(k, start, se=0):
+    def server_train_done(k, start, poisoned=False, se=0):
         if se != srv_state["epoch"]:
             return                      # in-service work lost to a crash
         srv_state["cur"] = None
@@ -520,6 +560,10 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         m.srv_batches += 1
         m.note_contribution(k)
         prof.observe_server(sim.t - start)
+        if poisoned:
+            # no-gate leg: the poison reached server training (badput —
+            # the faults benchmark subtracts these from goodput)
+            inj.note_disposition("consumed_poisoned_act")
         if hooks:
             hooks.server_train(k)
         srv_state["busy"] = False
@@ -553,6 +597,38 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
             _tr.emit_instant(f"dev/{k}", "join", sim.t)
         device_start_round(k, H)
 
+    # ---------------- injected fault windows ----------------
+    def crash_begin(outage_s):
+        inj.note_injected("server_crash")
+        if _tr.TRACING:
+            _tr.emit_instant("srv", "fault.crash_begin", sim.t,
+                             outage_s=outage_s)
+        srv_state["down"] += 1
+        srv_state["epoch"] += 1         # pending completions die stale
+        cur = srv_state["cur"]
+        if srv_state["busy"] and cur is not None:
+            if cur.kind == "model":
+                # a lost model update would strand its device (model_return
+                # never fires): requeue it — durable Q_model survives the
+                # outage, only in-service compute is lost
+                sched.put(cur)
+                inj.note_disposition("lost_model_requeued")
+            else:
+                # the batch's flow token was released at dequeue: dropping
+                # it keeps Eq. 3 conserved, the work is simply lost
+                inj.note_disposition("lost_act_batch")
+        srv_state["cur"] = None
+        srv_state["busy"] = False
+        sim.after(outage_s, crash_end)
+
+    def crash_end():
+        srv_state["down"] -= 1
+        inj.note_recovered("server_crash", "crash_restart")
+        if _tr.TRACING:
+            _tr.emit_instant("srv", "fault.crash_end", sim.t)
+        if not srv_state["down"]:
+            kick_server()
+
     def reselect():
         """Re-draw the participation cohort from the available devices
         (fed the live Alg. 3 counters + staleness accounting).  Devices
@@ -576,6 +652,11 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
     install_fleet(sim, trace, active, bw, on_leave=on_leave,
                   on_rejoin=on_rejoin,
                   after_tick=reselect if sel is not None else None)
+    if inj is not None:
+        install_timeouts(sim, inj, active, trace,
+                         on_leave=on_leave, on_rejoin=on_rejoin)
+        for ev in inj.crashes():
+            sim.at(ev.t, crash_begin, float(ev.param))
     if metrics_every and metrics_every > 0.0:
         def _dump_metrics():
             print(m.to_registry(at=sim.t).dump_line(
@@ -584,4 +665,7 @@ def simulate_fedoptima(model: SimModel, cluster: SimCluster, *,
         sim.after(metrics_every, _dump_metrics)
     sim.run(duration)
     m.duration = duration
+    if inj is not None:
+        inj.finalize(duration)
+        m.faults = inj.report()
     return m

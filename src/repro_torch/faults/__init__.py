@@ -1,15 +1,15 @@
-"""Chaos plane on the pod round: seeded fault injection + the recovery
-machinery's tests.
+"""Chaos plane: seeded fault injection + the recovery machinery's tests.
 
 ``schedule`` — the deterministic fault-scenario artifact
 (``fault-schedule-v1``); ``quarantine`` — the poison-update validation
-gate; ``inject`` — the schedule player for the pod executor
-(``PodFaultInjector``) and ``tear_snapshot``; ``crash_harness`` — the
+gate; ``inject`` — the schedule players for the event simulators
+(``FaultInjector``, ``install_timeouts``) and the pod executor
+(``PodFaultInjector``, ``tear_snapshot``); ``crash_harness`` — the
 kill-at-a-round-boundary SIGKILL sweep proving crash-consistent, bit-exact
-resume.  The simulators' player (``FaultInjector``, ``install_timeouts``)
-comes with ROADMAP item A7.3a.
+resume.
 """
-from .inject import InjectedCrash, PodFaultInjector, tear_snapshot
+from .inject import (FaultInjector, InjectedCrash, PodFaultInjector,
+                     tear_snapshot)
 from .quarantine import UpdateGate, make_payload
 from .schedule import (BASELINE_CLASSES, CLASSES, CORRUPT_KINDS,
                        FAULT_FORMAT, POD_CLASSES, SIM_CLASSES, TEAR_MODES,
@@ -20,5 +20,5 @@ __all__ = [
     "SIM_CLASSES", "BASELINE_CLASSES", "POD_CLASSES",
     "FaultEvent", "FaultSchedule", "make_fault_schedule",
     "UpdateGate", "make_payload",
-    "PodFaultInjector", "InjectedCrash", "tear_snapshot",
+    "FaultInjector", "PodFaultInjector", "InjectedCrash", "tear_snapshot",
 ]

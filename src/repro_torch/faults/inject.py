@@ -1,28 +1,40 @@
-"""Fault injection on the pod round: play a :class:`FaultSchedule` into the
-executor's seams (time axis: round index).
+"""Fault injectors: play a :class:`FaultSchedule` into the named seams.
 
-:class:`PodFaultInjector` is the pod-mode
-:class:`~repro_torch.core.executor.RoundExecutor` side.
-``on_round_start`` raises :class:`InjectedCrash` at a scheduled round
-boundary (the crash-consistent restart path), ``mask_active`` opens
-timeout windows (the timed-out group's slot is reclaimed and its state
-retained for α-rejoin through the retention path), ``mask_produce``
-quarantines poisoned groups, and ``on_checkpoint`` tears a just-committed
-snapshot (:func:`tear_snapshot`).
+Two injector flavors share the schedule format and the accounting
+contract:
+
+* :class:`FaultInjector` — the event-simulator side (``simulate_fedoptima``
+  and the six baselines).  The simulator calls ``tag_*_upload`` at send
+  seams, ``act_dedupe``/``act_validate``/``model_validate`` at arrival
+  seams, and schedules the injector's ``timeouts()``/``crashes()`` windows
+  itself (:func:`install_timeouts` for the device timeouts).  Time axis:
+  simulated seconds.
+* :class:`PodFaultInjector` — the pod-mode
+  :class:`~repro_torch.core.executor.RoundExecutor` side.
+  ``on_round_start`` raises :class:`InjectedCrash` at a scheduled round
+  boundary (the crash-consistent restart path), ``mask_active`` opens
+  timeout windows (the timed-out group's slot is reclaimed and its state
+  retained for α-rejoin through the retention path), ``mask_produce``
+  quarantines poisoned groups, and ``on_checkpoint`` tears a
+  just-committed snapshot (:func:`tear_snapshot`).  Time axis: round
+  index.
 
 Accounting contract (checked by the tests): every fault is counted as
 **injected** at the seam where its effect lands (not when scheduled or
 armed), and every injected fault must be matched by a **recovered** count
-from the armor that absorbed it — quarantine, timeout rejoin, crash
-restart, the verified-snapshot fallback.  Events a run never reaches are
-**unfired** (``scheduled - injected``).  With the gate disabled, poisoned
-activations flow through unrecovered (disposition
-``admitted_poisoned_act``) and ``report()["matched"]`` is honestly False.
+from the armor that absorbed it — quarantine, α-staleness weighting,
+dedupe, timeout rejoin, crash restart, the verified-snapshot fallback.
+Events a run never reaches are **unfired** (``scheduled - injected``).
+With the gate disabled, poisoned updates flow through unrecovered
+(disposition ``consumed_poisoned_*`` or ``admitted_poisoned_act``) and
+``report()["matched"]`` is honestly False.
 
-The torch port's pod half of the JAX package's ``faults/inject.py``: the
-simulators' half (``FaultInjector``, ``install_timeouts`` and their tracer
-instants) comes with ROADMAP item A7.3a, the fault plane in the
-simulators.
+The torch port's copy of the JAX package's ``faults/inject.py``: host
+arithmetic on numpy stand-in payloads (``quarantine.make_payload``), no
+tensor.  Poison is a tag that rides the simulators' messages, never a
+value written into a parameter.  With a tracer attached
+(``repro_torch.obs.trace``) the quarantines and timeout windows emit the
+reference's ``fault.*`` instants in the sim domain.
 """
 from __future__ import annotations
 
@@ -30,8 +42,15 @@ import os
 
 import numpy as np
 
+from repro_torch.obs import trace as _tr
+
 from .quarantine import UpdateGate, make_payload
-from .schedule import POD_CLASSES, FaultSchedule
+from .schedule import (BASELINE_CLASSES, POD_CLASSES, SIM_CLASSES,
+                       FaultSchedule)
+
+#: schedule classes that arm a device's NEXT upload (consumed one-shot,
+#: per device, in time order)
+_UPLOAD_CLASSES = ("corrupt_act", "corrupt_model", "duplicate", "delay")
 
 
 class InjectedCrash(RuntimeError):
@@ -85,6 +104,200 @@ class _Accounting:
                 "matched": all(self.injected.get(c, 0) ==
                                self.recovered.get(c, 0) for c in classes),
                 "gate": self.gate.summary() if self.gate else None}
+
+
+# ---------------------------------------------------------------------------
+# Event-simulator injector
+# ---------------------------------------------------------------------------
+
+class FaultInjector(_Accounting):
+    """Schedule player for the event simulators (time axis: sim seconds).
+
+    Upload-scoped classes (corrupt/duplicate/delay) arm a device's next
+    upload at/after their ``t`` — consumed one-shot in time order.
+    Window classes (timeout/server_crash) are exposed via ``timeouts()`` /
+    ``crashes()`` for the simulator to schedule as begin/end events.
+    """
+
+    def __init__(self, schedule: FaultSchedule, gate: UpdateGate | None = None,
+                 supported=SIM_CLASSES):
+        super().__init__(schedule, gate, supported)
+        self._pending: dict[str, dict[int, list]] = \
+            {c: {} for c in _UPLOAD_CLASSES}
+        for e in schedule.events:          # already sorted by t
+            if e.cls in self._pending and e.cls in self.supported:
+                self._pending[e.cls].setdefault(int(e.device), []).append(e)
+        self._seq = 0
+        self._delivered: set[int] = set()   # duplicate-tagged seqs seen once
+
+    @classmethod
+    def for_baseline(cls, schedule, gate=None) -> "FaultInjector":
+        """Injector restricted to what full-model baselines can express
+        (no activation stream / flow control; server cost is modeled)."""
+        return cls(schedule, gate=gate, supported=BASELINE_CLASSES)
+
+    # -- window events for the simulator to schedule ----------------------
+    def timeouts(self) -> tuple:
+        return self.schedule.by_class("timeout") \
+            if "timeout" in self.supported else ()
+
+    def crashes(self) -> tuple:
+        return self.schedule.by_class("server_crash") \
+            if "server_crash" in self.supported else ()
+
+    # -- upload tagging (send seams) ---------------------------------------
+    def _pop(self, cls: str, k: int, t: float):
+        q = self._pending[cls].get(int(k))
+        if q and q[0].t <= t:
+            return q.pop(0)
+        return None
+
+    def may_send(self, k: int, t: float) -> bool:
+        """Quarantine backoff: a struck device's sends stay paused."""
+        return self.gate is None or self.gate.may_send(k, t)
+
+    def tag_act_upload(self, k: int, t: float) -> dict | None:
+        """Consume faults armed for device k's next activation upload."""
+        e_c = self._pop("corrupt_act", k, t)
+        e_d = self._pop("duplicate", k, t)
+        if e_c is None and e_d is None:
+            return None
+        self._seq += 1
+        return {"seq": self._seq,
+                "kind": e_c.kind if e_c is not None else "",
+                "dup_extra": e_d.param if e_d is not None else None}
+
+    def tag_model_upload(self, k: int, t: float) -> tuple:
+        """(extra_delay_s, corrupt_kind) for device k's next model upload."""
+        e_d = self._pop("delay", k, t)
+        e_c = self._pop("corrupt_model", k, t)
+        return ((e_d.param if e_d is not None else 0.0),
+                (e_c.kind if e_c is not None else ""))
+
+    # -- arrival seams -------------------------------------------------------
+    def act_dedupe(self, seq: int) -> bool:
+        """True for the first delivery of a duplicate-tagged upload; the
+        second delivery is the injected fault, recovered by the drop."""
+        if seq in self._delivered:
+            self.note_injected("duplicate")
+            self.note_recovered("duplicate", "dedup_dropped")
+            return False
+        self._delivered.add(seq)
+        return True
+
+    def act_validate(self, k: int, tag: dict | None, t: float) -> bool:
+        """Validation gate for one arriving activation batch.  True →
+        admit (poisoned-if-unarmored); False → quarantined, and the CALLER
+        must withdraw the flow token (``FlowController.on_quarantined``)
+        and not enqueue."""
+        kind = tag.get("kind", "") if tag else ""
+        if not kind:
+            return True
+        self.note_injected("corrupt_act")
+        if self.gate is None:
+            self.note_disposition("admitted_poisoned_act")
+            return True
+        ok, _ = self.gate.validate(make_payload(kind, seed=tag["seq"]))
+        if ok:
+            self.note_disposition("gate_missed_act")
+            return True
+        self.gate.note_reject(k, t)
+        self.note_recovered("corrupt_act", "quarantined_act")
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "fault.quarantine_act", t,
+                             kind=kind)
+        return False
+
+    def note_accept(self, k: int):
+        """A clean admitted update forgives one strike (gate healing)."""
+        if self.gate is not None:
+            self.gate.note_accept(k)
+
+    def model_validate(self, k: int, kind: str, t: float) -> tuple:
+        """(admit, backoff) for one arriving model update.  On quarantine
+        the caller skips aggregation and releases the device after
+        ``backoff`` (re-sync without consuming the poisoned update)."""
+        if not kind:
+            return True, 0.0
+        self.note_injected("corrupt_model")
+        if self.gate is None:
+            self.note_disposition("consumed_poisoned_model")
+            return True, 0.0
+        self._seq += 1
+        ok, _ = self.gate.validate(make_payload(kind, seed=self._seq))
+        if ok:
+            self.note_disposition("gate_missed_model")
+            return True, 0.0
+        backoff = self.gate.note_reject(k, t)
+        self.note_recovered("corrupt_model", "quarantined_model")
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "fault.quarantine_model", t,
+                             kind=kind, backoff=backoff)
+        return False, backoff
+
+    def note_delayed_arrival(self):
+        """A delay-tagged model arrived: Alg. 4's staleness weighting is
+        the armor (weight 0 past max_delay), applied by the control plane
+        at aggregation — injected and recovered at the same seam."""
+        self.note_injected("delay")
+        self.note_recovered("delay", "late_arrival")
+
+    # -- run end ---------------------------------------------------------
+    def finalize(self, t_end: float):
+        """Close outage windows still open when the run ends (an end event
+        scheduled past ``duration`` never fires — the run finishing IS the
+        recovery)."""
+        del t_end
+        for cls in ("timeout", "server_crash"):
+            gap = self.injected.get(cls, 0) - self.recovered.get(cls, 0)
+            for _ in range(gap):
+                self.note_recovered(cls, f"{cls}_closed_at_end")
+
+
+def install_timeouts(sim, inj: FaultInjector | None, active, trace, *,
+                     on_leave=None, on_rejoin=None):
+    """Schedule an injector's device-timeout windows into an event sim.
+
+    A timeout is a mid-round blackout, NOT a trace event: the device goes
+    dark at the scheduled instant (``on_leave`` fires the protocol's own
+    departure handling — chain kill, token reclaim, counter purge) and
+    comes back when the window closes, unless a trace tick already brought
+    it back ("already_back") or still holds it down ("deferred_to_trace" —
+    the trace's own rejoin tick recovers it later).  Shared by
+    ``simulate_fedoptima`` and all six baselines so the window accounting
+    is one code path."""
+    if inj is None:
+        return
+
+    def timeout_begin(k, outage_s):
+        if not active[k]:
+            inj.note_disposition("timeout_noop")     # already away
+            return
+        inj.note_injected("timeout")
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "fault.timeout_begin", sim.t,
+                             outage_s=outage_s)
+        active[k] = False
+        if on_leave is not None:
+            on_leave(k)
+        sim.after(outage_s, timeout_end, k)
+
+    def timeout_end(k):
+        if active[k]:
+            inj.note_recovered("timeout", "timeout_already_back")
+            return
+        if trace is not None and not bool(trace.state_at(sim.t)[0][k]):
+            inj.note_recovered("timeout", "timeout_deferred_to_trace")
+            return
+        active[k] = True
+        inj.note_recovered("timeout", "timeout_rejoined")
+        if _tr.TRACING:
+            _tr.emit_instant(f"dev/{k}", "fault.timeout_end", sim.t)
+        if on_rejoin is not None:
+            on_rejoin(k)
+
+    for ev in inj.timeouts():
+        sim.at(ev.t, timeout_begin, int(ev.device), float(ev.param))
 
 
 # ---------------------------------------------------------------------------

@@ -51,9 +51,13 @@ pipeline drains first.  Rerunning the same command resumes from the
 newest verified snapshot (a torn one is skipped and reported) and
 continues bit for bit.  Sim mode ignores ``--ckpt-dir``.
 
-``--faults`` (pod mode; ``repro_torch.faults``) plays a fault schedule, a
-``fault-schedule-v1`` JSON or ``random[:density]`` over the pod classes,
-into the round boundaries: ``corrupt_act`` (the update gate quarantines
+``--faults`` (``repro_torch.faults``) plays a fault schedule, a
+``fault-schedule-v1`` JSON or ``random[:density]`` over the mode's
+classes.  Sim mode injects the simulator classes at the event seams (time
+axis simulated seconds, horizon ``--duration``): corrupt activation and
+model uploads (the update gate quarantines them), duplicated and delayed
+uploads, device timeouts and server crashes.  Pod mode injects the pod
+classes at the round boundaries: ``corrupt_act`` (the update gate quarantines
 the group's uploads for the round), ``timeout`` (the group leaves the
 roster and rejoins from its retained params), ``server_crash`` (the run
 raises ``InjectedCrash`` at the boundary after writing the fired
@@ -104,6 +108,8 @@ event metrics are the JAX package's::
         --duration 30 --fleet-trace flaky --selection refl:0.5
     python -m repro_torch.launch.train --mode sim --device cpu --devices 4 \
         --duration 30 --trace sim.json --metrics-every 10
+    python -m repro_torch.launch.train --mode sim --device cpu --devices 4 \
+        --duration 20 --faults random:2
 
 ``--arch`` takes ``smollm-135m``, ``mamba2-780m``, ``command-r-plus-104b``,
 ``qwen3-32b``, ``gemma2-27b``, ``llama-3.2-vision-90b``, ``whisper-tiny``
@@ -130,8 +136,8 @@ from repro_torch.core.executor import (RoundExecutor, StragglerProfiles,
 from repro_torch.core.staging import to_device
 from repro_torch.data.partitioner import dirichlet_partition
 from repro_torch.data.synthetic import lm_dataset
-from repro_torch.faults import (POD_CLASSES, FaultSchedule, InjectedCrash,
-                                PodFaultInjector, UpdateGate,
+from repro_torch.faults import (POD_CLASSES, SIM_CLASSES, FaultSchedule,
+                                InjectedCrash, PodFaultInjector, UpdateGate,
                                 make_fault_schedule)
 from repro_torch.fleet import (FleetTrace, SelectionContext,
                                make_selection_policy, make_trace,
@@ -140,23 +146,6 @@ from repro_torch.memory import ActivationStore
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.elastic import ElasticRegistry
-
-#: Sim-mode flags whose machinery comes with later items of ROADMAP.md's
-#: queue A: flag -> (attribute, the value that means "off", the item that
-#: brings it).  Unset (None) is off too.
-SIM_LATER = {
-    "--faults": ("faults", None, "A7.3a, the fault plane in the simulators"),
-}
-
-
-def _refuse_later_slices(args, table) -> None:
-    for flag, (attr, off, later) in table.items():
-        value = getattr(args, attr, off)
-        if value is not None and value != off:
-            raise NotImplementedError(
-                f"{flag}={value!r}: not in the torch port yet; it comes with "
-                f"ROADMAP item {later}")
-
 
 def _fleet_trace(args, K: int, horizon: float, interval: float,
                  bw=None) -> FleetTrace | None:
@@ -189,7 +178,7 @@ def _fault_schedule(args, K: int, horizon: float,
                     classes) -> FaultSchedule | None:
     """Resolve --faults: a JSON artifact path (fault-schedule-v1), or
     ``random[:density]`` — a seeded schedule over the mode's supported
-    fault classes (pod: the time axis is the round index)."""
+    fault classes (sim: time axis seconds; pod: time axis round index)."""
     spec = getattr(args, "faults", None)
     if spec is None:
         return None
@@ -608,11 +597,11 @@ def run_sim(args) -> dict:
     """The JAX driver's ``run_sim``: a VGG-5 FedOptima learner (16x16
     images, 10 classes, l_split 1) on ``args.device`` in the event
     simulator over ``heterogeneous_cluster(args.devices)``, or a cluster
-    sampled from ``--fleet-tiers``, under ``--fleet-trace`` and
-    ``--selection`` when given.  Prints the reference's lines and returns
-    its dict; ``"registry"`` is the port's ``MetricsRegistry``
-    snapshot."""
-    _refuse_later_slices(args, SIM_LATER)
+    sampled from ``--fleet-tiers``, under ``--fleet-trace``,
+    ``--selection`` and ``--faults`` when given.  Prints the reference's
+    lines and returns its dict (with ``"faults"``, the injector's report,
+    under a fault schedule); ``"registry"`` is the port's
+    ``MetricsRegistry`` snapshot."""
     from repro_torch.core.learning import FedOptimaLearner, ModelAdapter
     from repro_torch.core.simulation import (SimModel, heterogeneous_cluster,
                                              simulate_fedoptima)
@@ -657,13 +646,15 @@ def run_sim(args) -> dict:
     control = ControlPlane.for_sim(args.devices, omega, policy=policy,
                                    max_delay=max_delay, pool_cap=pool_cap)
     profiles = StragglerProfiles(args.devices)
+    faults_sched = _fault_schedule(args, args.devices, args.duration,
+                                   SIM_CLASSES)
     metrics = simulate_fedoptima(sim_model, cluster, duration=args.duration,
                                  omega=omega, H=H, policy=policy,
                                  max_delay=max_delay, pool_cap=pool_cap,
                                  seed=args.seed, fleet=fleet,
                                  selection=getattr(args, "selection", None),
                                  hooks=learner, control=control,
-                                 profiles=profiles,
+                                 profiles=profiles, faults=faults_sched,
                                  metrics_every=float(
                                      getattr(args, "metrics_every", 0) or 0))
     xte, yte = data.x[:512], data.y[:512]
@@ -701,22 +692,28 @@ def run_sim(args) -> dict:
         print(f"fleet: trace={kind}  roster events={absences}  active now "
               f"{len(metrics.registry.active_ids)}/{args.devices}")
     reg = metrics.to_registry()
+    out = {"accuracy": acc, "srv_idle": metrics.srv_idle_frac,
+           "dev_idle": metrics.dev_idle_frac,
+           "throughput": metrics.throughput,
+           "profiles": profiles.summary(),
+           "produce_per_round": produce.sum(axis=0).tolist(),
+           "reads_per_round": int(reads.sum()),
+           "memory": mem,
+           "consumed": metrics.dev_consumed.tolist(),
+           "contribution_balance": bal,
+           "steady": steady, "registry": reg.snapshot()}
     if getattr(args, "metrics_every", 0):
         print(reg.dump_line(prefix="[final]"))
     if getattr(args, "metrics_out", None):
         reg.write_jsonl(args.metrics_out,
                         extra={"mode": "sim", "duration": args.duration,
                                "devices": args.devices})
-    return {"accuracy": acc, "srv_idle": metrics.srv_idle_frac,
-            "dev_idle": metrics.dev_idle_frac,
-            "throughput": metrics.throughput,
-            "profiles": profiles.summary(),
-            "produce_per_round": produce.sum(axis=0).tolist(),
-            "reads_per_round": int(reads.sum()),
-            "memory": mem,
-            "consumed": metrics.dev_consumed.tolist(),
-            "contribution_balance": bal,
-            "steady": steady, "registry": reg.snapshot()}
+    if metrics.faults is not None:
+        fr = metrics.faults
+        print(f"faults: injected={fr['injected']}  "
+              f"recovered={fr['recovered']}  matched={fr['matched']}")
+        out["faults"] = fr
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -838,14 +835,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "round at dispatch and save it while later rounds "
                         "stay in flight")
     p.add_argument("--faults", default=None,
-                   help="chaos plane (repro_torch.faults), pod mode: a "
-                        "fault-schedule JSON path, or 'random[:density]' — "
-                        "a seeded schedule of corrupt uploads, group "
-                        "timeouts, server crashes and checkpoint tears, "
-                        "injected at round boundaries (crash/tear faults "
-                        "need --ckpt-dir; an injected crash kills the run — "
-                        "rerun the same command to resume).  Sim mode "
-                        "refuses it until ROADMAP item A7.3a")
+                   help="chaos plane (repro_torch.faults): a fault-schedule "
+                        "JSON path, or 'random[:density]' — a seeded "
+                        "schedule of corrupt uploads, duplicates, delays, "
+                        "device timeouts, server crashes and checkpoint "
+                        "tears.  Sim mode injects at the event seams (time "
+                        "axis seconds); pod mode at round boundaries "
+                        "(crash/tear faults need --ckpt-dir; an injected "
+                        "crash kills the run — rerun the same command to "
+                        "resume)")
     return p
 
 

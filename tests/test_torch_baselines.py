@@ -3,8 +3,8 @@ protocols (classic FL, FedAsync, FedBuff, SplitFed, PiPar, OAFL) on the
 port's event simulator with no hooks (bit-identical over a small grid),
 the hook calls they make (the same calls in the same order), their two
 learners driven through them from the JAX learner's init, the Eq. 6-8
-split (``core/partition.py``, equal floats), ``lm_batches`` (exact), and
-the refusals of the planes that come later.  Then
+split (``core/partition.py``, equal floats) and ``lm_batches`` (exact).
+Their fault plane is held in ``tests/test_torch_sim_faults.py``.  Then
 ``tests/test_simulation.py``'s and ``tests/test_communication.py``'s
 orderings of FedOptima against the baselines, on the port alone.
 
@@ -374,21 +374,3 @@ def test_lm_batches_exact(seed):
         assert tx.dtype == jx.dtype and np.array_equal(tx, jx)
         assert ty.dtype == jy.dtype and np.array_equal(ty, jy)
     assert tx.shape == (4, 16) and np.array_equal(tx[:, 1:], ty[:, :-1])
-
-
-# ---------------------------------------------------------------------------
-# (f) what comes later is refused, naming its ROADMAP item
-# ---------------------------------------------------------------------------
-
-PLANE_ARGS = [("faults", "random", "A7.3a, the fault plane in the simulators"),
-              ("fault_gate", False, "A7.3a, the fault plane in the simulators")]
-REFUSALS = [(name, arg, value, item) for name in tbase.REGISTRY
-            for arg, value, item in PLANE_ARGS]
-
-
-@pytest.mark.parametrize("name,arg,value,item", REFUSALS,
-                         ids=[f"{n}-{a}" for n, a, _, _ in REFUSALS])
-def test_baseline_refuses_later_planes(name, arg, value, item):
-    assert set(tbase.LATER) == {a for a, _, _ in PLANE_ARGS}
-    with pytest.raises(NotImplementedError, match=item):
-        _run(tbase, tsim, name, 4, 10, 10.0, **{arg: value})

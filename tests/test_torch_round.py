@@ -367,9 +367,10 @@ REFUSED = [  # flags, the error, what its message must name
     # pod --faults runs since A7.3b: a schedule with crashes or tears
     # needs a store to recover from
     (["--faults", "random"], ValueError, "--ckpt-dir is required"),
-    # sim mode runs since A6a; its fault plane is A7.3a's
-    (["--mode", "sim", "--faults", "random"], NotImplementedError,
-     "A7.3a, the fault plane in the simulators"),
+    # sim mode takes --faults too, and refuses an unknown spec as pod
+    # mode does
+    (["--mode", "sim", "--faults", "bogus"], ValueError,
+     "unknown --faults spec"),
     (["--faults", "bogus"], ValueError, "unknown --faults spec"),
     (["--window", "-1"], ValueError, "window must be >= 1"),
 ]

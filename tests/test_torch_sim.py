@@ -5,7 +5,8 @@ the numpy data helpers and the staleness-weighted aggregator (exact), the
 event simulator with no hooks (bit-identical over a grid of policies, ω,
 spill budgets and cluster sizes), the learner driven through the
 simulator, and ``run_sim``.  Then ``tests/test_simulation.py``'s
-properties on the port, and the refusals of the planes that come later.
+properties on the port, and ``run_sim``'s ``--ckpt-dir`` and
+``--pool-cap``.
 
 Model tolerance: the reference's own gradient tolerance, 1e-4
 (``tests/test_kernel_grads.py`` GTOL), as in ``tests/test_torch_model.py``;
@@ -431,32 +432,11 @@ def test_larger_omega_no_less_server_work():
 
 
 # ---------------------------------------------------------------------------
-# what comes later is refused, naming its ROADMAP item
+# run_sim's flags
 # ---------------------------------------------------------------------------
-
-PLANE_ARGS = [("faults", "random", "A7.3a, the fault plane in the simulators"),
-              ("fault_gate", False, "A7.3a, the fault plane in the simulators")]
-
-
-@pytest.mark.parametrize("name,value,item", PLANE_ARGS,
-                         ids=[a for a, _, _ in PLANE_ARGS])
-def test_simulator_refuses_later_planes(name, value, item):
-    assert set(tsim.LATER) == {a for a, _, _ in PLANE_ARGS}
-    with pytest.raises(NotImplementedError, match=item):
-        tsim.simulate_fedoptima(MODEL, CLUSTER, duration=10.0,
-                                **{name: value})
-
 
 SIM_ARGS = ["--mode", "sim", "--device", "cpu", "--devices", "2",
             "--duration", "1"]
-SIM_REFUSED = [(["--faults", "random"], "A7.3a, the fault plane in the simulators")]
-
-
-@pytest.mark.parametrize("flags,item", SIM_REFUSED,
-                         ids=[f[0] for f, _ in SIM_REFUSED])
-def test_sim_mode_refuses_later_flags(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttrain.main(SIM_ARGS + flags)
 
 
 def test_sim_mode_ignores_ckpt_dir(tmp_path):
