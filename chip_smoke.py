@@ -58,7 +58,19 @@ exits non-zero:
    in turns (1, 2), each run with every kernel's launches counted over the run (rounds x the per-round count)
    and its peak memory, steady tok/s, host seconds inside ``step()`` per
    round and the executor's summary; the two windows' histories must be
-   bit-identical.
+   bit-identical.  The path's ``[roofline]`` line follows phase 4c: one
+   round of its config, the kernel path, counted on the meta device
+   (``repro_torch.analysis.cost.analyze_call``, in ``COUNT_WORKERS``
+   worker processes that run beside phase 4c; ``count_round``), read at
+   the window-2 steady tok/s: counted GFLOP (the kernels' among them) and
+   GB a round, model GFLOP a round (6·N_active·tokens), the useful ratio,
+   the counted FLOP/s, the mfu (model FLOP/s over ``PEAK_FLOPS``, bf16),
+   the f32 share (counted FLOP/s over ``PEAK_FLOPS_F32``; TF32 is off),
+   the roofline share (the round's least time, its kernel FLOPs at
+   ``PEAK_FLOPS_TF32 / 3``, the rest at ``PEAK_FLOPS_F32``, its bytes at
+   ``HBM_BW``, over its time), the same over the profiled round's busy
+   time, the dominant term and the seconds the count took; the mfu, the
+   f32 share and both roofline shares must be finite and under 1.
    4c: then qwen3-32b (qk-norm, untied head), gemma2-27b (local and
    global blocks, soft-caps, GeGLU) and llama-3.2-vision-90b (gated cross
    blocks on the frontend stub) at every published width, cut in depth
@@ -76,7 +88,8 @@ exits non-zero:
    launches of each family reckoned from its own blocks): the same
    kernels-vs-plain check and profiled round, and two driver rounds
    through the ``RoundExecutor`` at window 2 (steady tok/s, device ms per
-   round, peak memory).  The cuts are printed on the path's first line.
+   round, peak memory) and the path's ``[roofline]`` line, as in phase 4.
+   The cuts are printed on the path's first line.
    The driver feeds zero frontends, as the JAX driver does, so whisper's
    device loss is exactly 0 on both paths.
 5. churn — full-width, full-depth smollm-135m under ``--p-drop 0.3`` for
@@ -93,7 +106,13 @@ exits non-zero:
    of S tokens against the prefill of S + 1 on both paths (within
    ``SERVE_DECODE_TOL``); then greedy
    generation on both, with prefill ms, decode ms per step, tok/s, peak
-   memory and the greedy tokens that differ printed.
+   memory and the greedy tokens that differ printed.  After the last wide
+   path, the examples leg (``phase_examples``): ``examples/
+   quickstart_torch.py`` on the card (8 rounds, every loss finite) and
+   ``examples/federated_lm_torch.py`` at its smoke default for
+   ``LM_ROUNDS`` rounds, its own check that the server learned holding,
+   with a snapshot into a temporary directory that the store verifies;
+   both on the plain path (no launch); each one's seconds printed.
 
 7. sim — the sim-mode FedOptima learner, which runs no kernel of the five
    (their counts must stay 0): (a) ``launch/train.run_sim`` at its
@@ -256,22 +275,18 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, TF32 on the
-# tensor cores (dense), HBM3.  A float32-accurate product on the tensor cores
-# takes three TF32 products (3xTF32), so its peak is PEAK_TF32_FLOPS / 3.
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES = 3.35e12
 TOL = {("float32", "fwd"): (1e-4, 1e-4), ("float32", "bwd"): (5e-4, 1e-3),
        ("bfloat16", "fwd"): (3e-2, 3e-2), ("bfloat16", "bwd"): (3e-2, 3e-2)}
 # SSD, f32: |got - want| <= 1e-4 scale + 1e-3 |want|, with the scale of
@@ -369,6 +384,15 @@ WIDE_NOTES = {
 # two driver rounds keep the script inside its time; the steady tok/s is
 # then one round's, as mamba2's
 WIDE_DRIVER_ROUNDS = 2
+# Phases 4 and 4c read each path's round against the H100's roofline: one
+# round of the path's config, the kernel path that the driver times (each
+# kernel op counted by its formula), counted on the meta device in
+# COUNT_WORKERS worker processes.  They start with phase 4c, whose wide
+# paths keep the card busy and the host mostly waiting: beside the build
+# they slowed nvcc from 18 s to 34 s (an H100 host), and beside phase 3
+# or phase 4's host-bound paths they would share the host with what is
+# timed
+COUNT_WORKERS = 2
 # Phase 6, serving: arch -> (batch, prompt length, new tokens).  Each is
 # served from its path's trained final state, merged (``merge_params``):
 # smollm whole, mamba2 at its depth cut, whisper whole over its 1500 frames (416 + 32 =
@@ -383,6 +407,9 @@ SERVE = {"smollm-135m": (8, 1024, 16), "mamba2-780m": (8, 1024, 16),
 # most 9.331e-06 over the four served paths on an H100).
 SERVE_TOL = 1e-3
 SERVE_DECODE_TOL = 1e-4
+# Phase 6's examples leg: federated_lm_torch's rounds, the fewest at which
+# its check that the server learned holds (on the CPU: 5, not 4)
+LM_ROUNDS = 5
 # Phase 9, the tiered store: smollm's main path with a ring of ω=2 slots and
 # a host pool of 2 (``--pool-cap 2``); the server reads nothing for
 # STORE_STALL rounds, then drains for as many (two stalled rounds spill and
@@ -564,33 +591,37 @@ def _close(torch, name, got, want, atol, rtol, atol_text=None):
 def _least_ms(flops, nbytes):
     """(bound_ms, bound_by, bound_simt_ms): the least time for this work
     with its float32-accurate products as 3xTF32 on the tensor cores (three
-    TF32 products each), and with them on the CUDA cores; bytes at the HBM
-    rate bound both."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = 3 * flops / PEAK_TF32_FLOPS
-    t_simt = max(flops / PEAK_F32_FLOPS, t_bytes)
+    TF32 products each, so at PEAK_FLOPS_TF32 / 3), and with them on the
+    CUDA cores (PEAK_FLOPS_F32); bytes at HBM_BW bound both.  The H100
+    SXM's datasheet peaks, from ``repro_torch.analysis.roofline``."""
+    from repro_torch.analysis.roofline import (HBM_BW, PEAK_FLOPS_F32,
+                                               PEAK_FLOPS_TF32)
+    t_bytes = nbytes / HBM_BW
+    t_ops = 3 * flops / PEAK_FLOPS_TF32
+    t_simt = max(flops / PEAK_FLOPS_F32, t_bytes)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", t_simt * 1e3)
 
 
-def _bounds(torch, ref, shape, opts, dtype):
+def _bounds(torch, shape, opts, dtype):
     """Least time (ms) for each kernel's work at this shape (``_least_ms``),
-    counting only the (q, k) pairs this mask makes visible."""
+    counting only the (q, k) pairs this mask makes visible
+    (``repro_torch.analysis.cost.attention_flops``, as the ``[roofline]``
+    counts count them)."""
+    from repro_torch.analysis.cost import attention_flops
     B, S, Skv, H, Hkv, hd = shape
-    vis = int(ref.visible(S, Skv, causal=opts["causal"],
-                          window=opts.get("window"), device="cpu").sum())
-    pairs = B * H * vis
     isz = torch.tensor([], dtype=dtype).element_size()
     q_b, kv_b, row_b = B * H * S * hd * isz, B * Hkv * Skv * hd * isz, \
         B * H * S * 4
-    work = {  # name: (flops: multiply-adds of its products, bytes)
-        "fa_fwd": (4 * hd * pairs, 2 * q_b + 2 * kv_b + row_b),
-        "fa_bwd_dq": (6 * hd * pairs, 2 * q_b + 2 * kv_b + 2 * row_b
-                      + B * H * S * hd * 4),
-        "fa_bwd_dkv": (8 * hd * pairs, 2 * q_b + 2 * kv_b + 2 * row_b
-                       + 2 * B * Hkv * Skv * hd * 4),
+    nbytes = {  # name: each input read once, each output written once
+        "fa_fwd": 2 * q_b + 2 * kv_b + row_b,
+        "fa_bwd_dq": 2 * q_b + 2 * kv_b + 2 * row_b + B * H * S * hd * 4,
+        "fa_bwd_dkv": 2 * q_b + 2 * kv_b + 2 * row_b
+        + 2 * B * Hkv * Skv * hd * 4,
     }
-    return {name: _least_ms(*w) for name, w in work.items()}
+    return {name: _least_ms(attention_flops(
+        name, B, H, S, Skv, hd, causal=opts["causal"],
+        window=opts.get("window")), n) for name, n in nbytes.items()}
 
 
 def _sdpa_ms(torch, q, k, v, do, opts):
@@ -647,7 +678,7 @@ def phase_kernels(torch, fa, ref) -> dict:
                               lambda: ref.fa_bwd_dq(*bwd_in, **opts)),
                 "fa_bwd_dkv": (lambda: fa.fa_bwd_dkv(*bwd_in, **opts),
                                lambda: ref.fa_bwd_dkv(*bwd_in, **opts))}
-        bounds = _bounds(torch, ref, shape, opts, dtype)
+        bounds = _bounds(torch, shape, opts, dtype)
         sdpa_fwd, sdpa_bwd = _sdpa_ms(torch, q, k, v, do, opts)
 
         def backward():  # as ops._FlashAttention.backward runs it
@@ -788,26 +819,20 @@ def _ssd_inputs(torch, shape, a_min, seed, large_decay):
 def _ssd_bounds(shape, Q):
     """Least time (ms) for each SSD kernel at this shape (``_least_ms``):
     its bytes (each input read once, each output written once) and its
-    flops (2 per multiply-add), counting only the Q (Q + 1) / 2 pairs
-    s <= t of each chunk, and
-    the score product C·Bᵀ once per (batch, group, chunk): every head of a
-    group shares it."""
+    flops (``repro_torch.analysis.cost.ssd_flops``: only the Q (Q + 1) / 2
+    pairs s <= t of each chunk, and the score product C·Bᵀ once per
+    (batch, group, chunk))."""
+    from repro_torch.analysis.cost import ssd_flops
     B, T, H, P, G, N, _ = shape
     T += (-T) % Q
-    nc = T // Q
-    blocks, pairs = B * H * nc, Q * (Q + 1) // 2
-    scores = B * G * nc * pairs * N
     x_b, dt_b, bc_b = B * T * H * P * 4, B * T * H * 4, B * T * G * N * 4
-    st_b = B * H * nc * N * P * 4
-    work = {  # name: (multiply-adds, bytes)
-        "ssd_fwd": (scores + blocks * (pairs * P + 2 * Q * N * P),
-                    2 * x_b + dt_b + H * 4 + 2 * bc_b + st_b),
-        "ssd_bwd": (scores + blocks * (pairs * (2 * N + 2 * P)
-                                       + 4 * Q * N * P),
-                    3 * x_b + 2 * dt_b + 2 * H * 4 + 4 * bc_b + st_b),
+    st_b = B * H * (T // Q) * N * P * 4
+    nbytes = {
+        "ssd_fwd": 2 * x_b + dt_b + H * 4 + 2 * bc_b + st_b,
+        "ssd_bwd": 3 * x_b + 2 * dt_b + 2 * H * 4 + 4 * bc_b + st_b,
     }
-    return {name: _least_ms(2 * macs, nbytes)
-            for name, (macs, nbytes) in work.items()}
+    return {name: _least_ms(ssd_flops(name, B, T, H, P, G, N, Q), n)
+            for name, n in nbytes.items()}
 
 
 def phase_ssd_kernels(torch, ssd_k, ref) -> dict:
@@ -932,7 +957,7 @@ def profile_round(torch, round_fn, top=12, busy=None):
     read 23.7% busy with them, 39.9% without) and took 41 s to collect
     after smollm's profiled round, 57 s after mamba2's (9 s and 14 s
     without; an H100 host).  Returns the round's result; ``busy["share"]``
-    is set to the busy share."""
+    is set to the busy share and ``busy["ms"]`` to the busy time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -948,6 +973,7 @@ def profile_round(torch, round_fn, top=12, busy=None):
     busy_ms = sum(ms for _, ms in kernels)
     if busy is not None:
         busy["share"] = busy_ms / wall_ms
+        busy["ms"] = busy_ms
     print(f"[profile] one round: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), idle "
           f"{1 - busy_ms / wall_ms:.1%}")
@@ -1084,7 +1110,7 @@ def replay_route(torch, params, cfg, xt, chosen):
     return chosen, top_w, aux, differ.sum(), gap
 
 
-def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
+def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> dict:
     """Two rounds with the kernels and two with the plain path from the same
     state, batches and plans: the kernels launch ``want`` times a round and
     the plain path never, the losses agree within 1e-3 relative and the
@@ -1099,7 +1125,8 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
     expert, and one such token moves the params past PARAMS_TOL.  The
     tokens whose own choice differed are counted and printed with their
     smallest probability gap, so the comparison holds the kernels'
-    arithmetic alone."""
+    arithmetic alone.  Returns the profiled round's ``busy`` share and
+    ms."""
     import numpy as np
 
     from repro_torch.core import fedopt_step as F
@@ -1125,6 +1152,7 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
         return F.init_train_state(
             torch.Generator(device="cuda").manual_seed(args.seed), cfg)
 
+    busy = {}
     cplane = ControlPlane(cfg.n_groups, cfg.omega, cfg.H)
     streams = train._group_streams(cfg, seed=args.seed)
     rng = np.random.default_rng(args.seed)
@@ -1155,7 +1183,8 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
                 t0 = time.perf_counter()
                 run = lambda: step(state, batch)
                 profiled = use_kernel and r == 1
-                state, m = profile_round(torch, run) if profiled else run()
+                state, m = profile_round(torch, run, busy=busy) \
+                    if profiled else run()
                 m = {k: float(v) for k, v in m.items()}
                 losses[use_kernel].append(m)
                 print(f"{tag} {'kernel' if use_kernel else 'plain '} round "
@@ -1210,17 +1239,98 @@ def kernel_vs_plain(torch, tag: str, args, cfg, counters, want) -> None:
                                      "and plain paths disagree")
     del batches
     torch.cuda.empty_cache()
+    return busy
+
+
+def count_round(arch: str) -> dict:
+    """One round of ``arch``'s path (``main_setup`` / ``wide_setup``, the
+    kernel path that the driver times) counted on the meta device, in a
+    worker process (``COUNT_WORKERS``): its FLOPs, those of the five
+    kernel ops among them (3xTF32 on the tensor cores; the rest is float32
+    on the CUDA cores), its bytes, tokens, model FLOPs
+    (6·N_active·tokens) and the seconds the count took."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.analysis.cost import analyze_call
+    from repro_torch.analysis.roofline import count_params, model_flops
+    from repro_torch.core import fedopt_step as F
+    t0 = time.perf_counter()
+    _, cfg = (main_setup if arch in MAIN_PATHS else wide_setup)(arch, [])
+    assert cfg.use_kernel
+    batch = F.concrete_train_batch(torch.Generator().manual_seed(0), cfg,
+                                   device="meta")
+    by_op = {}
+    _, cost = analyze_call(F.make_train_step(cfg),
+                           F.abstract_train_state(cfg), batch, by_op=by_op)
+    tokens = cfg.global_batch * cfg.seq_len
+    return {"flops": cost.flops, "bytes": cost.bytes, "tokens": tokens,
+            "kernel_flops": sum(by_op.get(n, 0.0) for n in KERNELS),
+            "model_flops": model_flops(cfg.arch, tokens),
+            "n_active": count_params(cfg.arch)[1],
+            "seconds": time.perf_counter() - t0}
+
+
+def roofline_line(arch: str, count, steady_tok_s: float, busy: dict) -> None:
+    """The ``[roofline]`` line of a path: its counted round (``count``, the
+    future of ``count_round``) at the path's steady tok/s, and over the
+    device-busy time of its profiled kernel round (``busy``, from
+    ``kernel_vs_plain``).  The round's least time is its kernel FLOPs at
+    ``PEAK_FLOPS_TF32 / 3`` (3xTF32) plus the rest at ``PEAK_FLOPS_F32``
+    (TF32 is off), or its bytes at ``HBM_BW`` if longer: the roofline
+    share is that over the round's time.  The mfu (model FLOP/s over the
+    bf16 peak), the f32 share (counted FLOP/s over the float32 peak) and
+    both roofline shares must be finite and under 1."""
+    from repro_torch.analysis.cost import Cost
+    from repro_torch.analysis.roofline import (PEAK_FLOPS, PEAK_FLOPS_F32,
+                                               PEAK_FLOPS_TF32, roofline)
+    c = count.result()
+    rounds_s = steady_tok_s / c["tokens"]
+    rate = c["flops"] * rounds_s
+    mfu = c["model_flops"] * rounds_s / PEAK_FLOPS
+    f32_share = rate / PEAK_FLOPS_F32
+    busy_s = busy["ms"] / 1e3
+    busy_rate = c["flops"] / busy_s
+    t_ops = ((c["flops"] - c["kernel_flops"]) / PEAK_FLOPS_F32
+             + 3 * c["kernel_flops"] / PEAK_FLOPS_TF32)
+    # the peak of this mix of float32 and 3xTF32 work
+    terms = roofline(Cost(c["flops"], c["bytes"]),
+                     model_flops_total=c["model_flops"],
+                     peak=c["flops"] / t_ops)
+    share, busy_share = terms.step_s * rounds_s, terms.step_s / busy_s
+    print(f"[roofline] {arch}: counted {c['flops'] / 1e9:,.1f} GFLOP a "
+          f"round ({c['kernel_flops'] / 1e9:,.1f} of it in the kernels, "
+          f"3xTF32), {c['bytes'] / 1e9:,.1f} GB a round; model "
+          f"{c['model_flops'] / 1e9:,.1f} GFLOP a round (6·N_active·tokens, "
+          f"N_active {c['n_active'] / 1e6:,.1f}M, {c['tokens']:,} tokens); "
+          f"useful_ratio {terms.useful_ratio:.3f}; counted "
+          f"{rate / 1e12:.2f} TFLOP/s at {steady_tok_s:,.1f} tok/s; mfu "
+          f"{mfu:.2%} (÷ PEAK_FLOPS {PEAK_FLOPS / 1e12:.1f} TFLOP/s bf16); "
+          f"f32_share {f32_share:.2%} (÷ PEAK_FLOPS_F32 "
+          f"{PEAK_FLOPS_F32 / 1e12:.1f} TFLOP/s); roofline_share "
+          f"{share:.2%} (least {terms.step_s:.3f} s a round, "
+          f"{terms.dominant}-bound: the kernels at PEAK_FLOPS_TF32 / 3, the "
+          f"rest at PEAK_FLOPS_F32, bytes at HBM_BW); over the profiled "
+          f"kernel round's {busy['ms']:,.1f} ms busy ({busy['share']:.1%}) "
+          f"{busy_rate / 1e12:.2f} TFLOP/s, {busy_rate / PEAK_FLOPS_F32:.2%}"
+          f" of PEAK_FLOPS_F32, roofline_share {busy_share:.2%}; counted on "
+          f"meta in {c['seconds']:.1f} s | {smi_name_power()}", flush=True)
+    shares = (mfu, f32_share, share, busy_share)
+    if not all(math.isfinite(x) and 0 < x < 1 for x in shares):
+        raise AssertionError(f"{arch}: mfu, f32_share and the roofline "
+                             f"shares {shares} must be finite and in (0, 1)")
 
 
 def phase_main(torch, arch: str, counters) -> dict:
-    """One main path: kernels vs plain (a round of it profiled), the driver, and
-    serving from the last driver run's final state.  ``counters`` are the
-    kernel modules whose ``launches`` the driver's rounds read."""
+    """One main path: kernels vs plain (a round of it profiled), the driver
+    and serving from the last driver run's final state.  ``counters`` are
+    the kernel modules whose ``launches`` the driver's rounds read.  Its
+    round is read against the roofline after phase 4c (``busy`` and the
+    window-2 steady tok/s, returned)."""
     t_phase = time.perf_counter()
     args, cfg = main_setup(arch, ["--rounds", "2"])
     print(f"[main] {_describe(cfg)}", flush=True)
     per_round, want = launches_per_round(cfg, counters)
-    kernel_vs_plain(torch, "[main]", args, cfg, counters, want)
+    busy = kernel_vs_plain(torch, "[main]", args, cfg, counters, want)
 
     # 4b: the driver at windows 1 and 2, in turns
     rounds, turns = DRIVER_ROUNDS[arch], DRIVER_TURNS
@@ -1258,7 +1368,7 @@ def phase_main(torch, arch: str, counters) -> dict:
           f"{time.perf_counter() - t_phase:.0f} s", flush=True)
     served = serve_trained(torch, cfg, runs[-1][1], counters)
     return {"launches": by[2][0]["launches"], "steady_tok_s": steady,
-            "peak_bytes": peak, "serve": served}
+            "peak_bytes": peak, "serve": served, "busy": busy}
 
 
 def drive(torch, args, cfg, counters, keep_final: bool = False,
@@ -1549,10 +1659,11 @@ def phase_store(torch, counters) -> dict:
                                                    "int8": moves8}}
 
 
-def phase_wide(torch, arch: str, counters) -> dict:
+def phase_wide(torch, arch: str, counters, count) -> dict:
     """A full-width path with ``WIDE_PATHS``' cuts: kernels vs plain (a
-    round of it profiled), and ``WIDE_DRIVER_ROUNDS`` driver rounds at
-    window 2."""
+    round of it profiled), ``WIDE_DRIVER_ROUNDS`` driver rounds at window
+    2, and the round read against the roofline (``roofline_line`` on
+    ``count``)."""
     from repro_torch.configs import registry
 
     t_phase = time.perf_counter()
@@ -1603,7 +1714,8 @@ def phase_wide(torch, arch: str, counters) -> dict:
           f"{cfg.remat!r}, f32, TF32 off | launches per round, H x (G x "
           f"device blocks + server blocks that take the kernels): "
           f"{_reckoning(cfg)}{note}", flush=True)
-    kernel_vs_plain(torch, f"[wide] {arch}", args, cfg, counters, want)
+    busy = kernel_vs_plain(torch, f"[wide] {arch}", args, cfg, counters,
+                           want)
     run = drive(torch, *wide_setup(arch, [
         "--rounds", str(WIDE_DRIVER_ROUNDS), "--window", "2"]), counters,
         keep_state=arch in SERVE)
@@ -1619,6 +1731,7 @@ def phase_wide(torch, arch: str, counters) -> dict:
           f"{run['executor']['device_s_per_round'] * 1e3:.1f} | peak memory "
           f"{run['peak_bytes'] / 2**30:.2f} GiB | phase "
           f"{time.perf_counter() - t_phase:.0f} s", flush=True)
+    roofline_line(arch, count, run["steady_tok_s"], busy)
     served = serve_trained(torch, cfg, run, counters) if arch in SERVE \
         else None
     return {"launches": run["launches"], "per_round": per_round,
@@ -1774,6 +1887,54 @@ def phase_serve(torch, arch, params, counters) -> dict:
           f"{tok[True].numel()} | phase {time.perf_counter() - t0:.0f} s",
           flush=True)
     return n_k
+
+
+def _example(name: str):
+    """The module of ``examples/<name>.py``, loaded from the checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, counters) -> None:
+    """Phase 6's examples leg: ``examples/quickstart_torch.py`` on the card
+    (8 rounds, every loss finite) and ``examples/federated_lm_torch.py`` at
+    its smoke default for ``LM_ROUNDS`` rounds, the fewest at which its own
+    check that the server learned holds, with a snapshot at the last round
+    into a temporary directory, which the port's store must verify.  Both
+    run the plain path: no kernel launches."""
+    import tempfile
+
+    from repro_torch.checkpoint.store import verify_snapshot
+    t0 = time.perf_counter()
+    for c in counters:
+        c.reset_launches()
+    history = _example("quickstart_torch").main(["--device", "cuda"])
+    if len(history) != 8 or not all(math.isfinite(m[k]) for m in history
+                                    for k in ("d_loss", "s_loss")):
+        raise AssertionError(f"quickstart: want 8 finite rounds, got "
+                             f"{history}")
+    t_qs = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as ckpt:
+        out = _example("federated_lm_torch").main([
+            "--rounds", str(LM_ROUNDS), "--ckpt-every", str(LM_ROUNDS),
+            "--ckpt-dir", ckpt, "--device", "cuda"])
+        verified = verify_snapshot(ckpt, LM_ROUNDS)
+    t_lm = time.perf_counter() - t0 - t_qs
+    launches = {k: v for c in counters for k, v in c.launches.items()}
+    h = out["history"]
+    print(f"[examples] quickstart_torch: 8 rounds, losses finite, "
+          f"{t_qs:.1f} s | federated_lm_torch: {len(h)} rounds, server loss "
+          f"{h[0]['s_loss']:.4f} -> {h[-1]['s_loss']:.4f}, snapshot at round"
+          f" {LM_ROUNDS} verified {verified[0]}, {t_lm:.1f} s | launches "
+          f"{launches} | leg {time.perf_counter() - t0:.1f} s", flush=True)
+    if not verified[0]:
+        raise AssertionError(f"federated_lm snapshot: {verified[1]}")
+    if any(launches.values()):
+        raise AssertionError(f"the examples launched {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -2657,8 +2818,9 @@ TELEMETRY_ROUNDS = 2
 # the mesh spans' ends are card events placed through one anchor: their
 # differences are event-to-event times, as completion_gap_s is (seconds)
 TELEMETRY_GAP_TOL = 1e-4
-# (b): run_sim's defaults for 30 simulated seconds
-TELEMETRY_SIM_DURATION = 30.0
+# (b): run_sim's defaults for 20 simulated seconds (30 before the script
+# neared its time limit on a slow host)
+TELEMETRY_SIM_DURATION = 20.0
 TELEMETRY_DIR = ROOT / "build" / "telemetry"
 
 
@@ -3690,6 +3852,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_device(torch)
     phase_build(build)
+    # the nine paths' rounds counted on the meta device (``count_round``),
+    # in workers that start with phase 4c
+    pool = ProcessPoolExecutor(COUNT_WORKERS,
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _main(torch, t0, pool, fa, ref, ssd_k)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _main(torch, t0, pool, fa, ref, ssd_k) -> int:
     record = phase_kernels(torch, fa, ref)
     record.update(phase_ssd_kernels(torch, ssd_k, ref))
     phase_ssd_conditioning(torch, ssd_k, ref)
@@ -3702,12 +3875,22 @@ def main() -> int:
         paths[arch] = phase_main(torch, arch, (fa, ssd_k))
         print(f"[time] {arch} main path and serving: "
               f"{time.perf_counter() - t1:.0f} s", flush=True)
+    # the wide paths keep the card busy and the host mostly waiting, so
+    # the counts run beside them, their own first
+    counts = {arch: pool.submit(count_round, arch)
+              for arch in (*WIDE_PATHS, *MAIN_PATHS)}
     for arch in WIDE_PATHS:
         t1 = time.perf_counter()
-        wide[arch] = phase_wide(torch, arch, (fa, ssd_k))
+        wide[arch] = phase_wide(torch, arch, (fa, ssd_k), counts[arch])
         print(f"[time] {arch} wide path"
               f"{' and serving' if arch in SERVE else ''}: "
               f"{time.perf_counter() - t1:.0f} s", flush=True)
+    for arch, run in paths.items():
+        roofline_line(arch, counts[arch], statistics.mean(
+            run["steady_tok_s"][2]), run["busy"])
+    t1 = time.perf_counter()
+    phase_examples(torch, (fa, ssd_k))
+    print(f"[time] examples: {time.perf_counter() - t1:.0f} s", flush=True)
     t1 = time.perf_counter()
     phase_churn(torch, (fa, ssd_k))
     print(f"[time] churn: {time.perf_counter() - t1:.0f} s", flush=True)

@@ -97,6 +97,18 @@ def init_train_state(gen: torch.Generator, cfg: FedStepConfig) -> dict:
     return state
 
 
+def abstract_train_state(cfg: FedStepConfig) -> dict:
+    """The training state on the ``meta`` device: every leaf's shape and
+    dtype, no storage (a full-width round is counted on it,
+    ``analysis.cost``).  Drawn under fake tensors, which allocate nothing,
+    from the init's own code."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = init_train_state(torch.Generator().manual_seed(0), cfg)
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), fake)
+
+
 def _ring_fields(arch: ArchConfig) -> tuple:
     """The batch fields a ring slot carries beside the acts: the labels, an
     enc-dec arch's decoder tokens and a VLM's frontend embeddings."""
@@ -133,6 +145,60 @@ def identity_schedule(cfg: FedStepConfig, device) -> dict:
     return {"read_slot": slots, "write_slot": slots.clone(),
             "send_mask": torch.ones(cfg.H, cfg.n_groups, dtype=torch.float32,
                                     device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors for every model input)
+# ---------------------------------------------------------------------------
+
+#: Per-group (G,) control fields consumed once per round (not scanned over
+#: the H micro-iterations): aggregation weights + broadcast receive mask.
+PER_GROUP_KEYS = ("agg_weight", "bcast_mask")
+
+
+def train_input_specs(cfg: FedStepConfig) -> dict:
+    """Batch stand-ins on the ``meta`` device (shape and dtype, no
+    storage): tokens/labels per group per local iteration (one round = H
+    micro-iterations); agg weights + the activation-ring schedule from the
+    host control plane.  The JAX package's specs, with int64 where it has
+    int32."""
+    arch = cfg.arch
+    G, H, b, S = cfg.n_groups, cfg.H, cfg.micro_batch, cfg.seq_len
+    spec = lambda *shape, dtype: torch.empty(shape, dtype=dtype,
+                                             device="meta")
+    batch = {"tokens": spec(G, H, b, S, dtype=torch.int64),
+             "labels": spec(G, H, b, S, dtype=torch.int64),
+             "agg_weight": spec(G, dtype=torch.float32),
+             "bcast_mask": spec(G, dtype=torch.float32),
+             "read_slot": spec(H, dtype=torch.int64),
+             "write_slot": spec(H, dtype=torch.int64),
+             "send_mask": spec(H, G, dtype=torch.float32)}
+    if arch.frontend_len:
+        batch["frontend"] = spec(G, H, b, arch.frontend_len, arch.d_model,
+                                 dtype=cfg.param_dtype)
+    return batch
+
+
+def concrete_train_batch(gen: torch.Generator, cfg: FedStepConfig,
+                         device=None) -> dict:
+    """One round's batch on ``device`` (``gen``'s by default): the identity
+    schedule (slot indices on the host), ones for the per-group fields,
+    tokens and labels drawn uniformly from ``[0, vocab)`` and a frontend
+    drawn from the standard normal, both from ``gen``."""
+    device = torch.device(gen.device if device is None else device)
+    out = dict(identity_schedule(cfg, device))
+    for k, s in train_input_specs(cfg).items():
+        if k in out:
+            continue
+        if k in PER_GROUP_KEYS:
+            out[k] = torch.ones(s.shape, dtype=s.dtype, device=device)
+        elif s.dtype == torch.int64:
+            out[k] = torch.randint(0, cfg.arch.vocab, s.shape, generator=gen,
+                                   dtype=s.dtype, device=device)
+        else:
+            out[k] = torch.randn(s.shape, generator=gen, dtype=s.dtype,
+                                 device=device)
+    return out
 
 
 def _quant(x):

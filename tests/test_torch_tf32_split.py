@@ -156,7 +156,7 @@ def test_bounds_price_products_as_3xtf32(name, bound_ms, simt_ms):
     """At the server half's shape (B=8, S=1024, 9:3 heads, hd 64, causal:
     37,785,600 visible pairs) the three kernels stay bound by operations."""
     shape, opts = next((s, o) for c, s, o, _ in CS.CASES if c == "main-srv")
-    got_ms, by, got_simt = CS._bounds(torch, tref, shape, opts,
+    got_ms, by, got_simt = CS._bounds(torch, shape, opts,
                                       torch.float32)[name]
     assert by == "operations"
     assert got_ms == pytest.approx(bound_ms, rel=0.01)
